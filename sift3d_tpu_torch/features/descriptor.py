@@ -1,0 +1,117 @@
+"""SIFT3D descriptor extraction.
+
+Reproduces extract_descrip (reference sift3d/sift.c:1834-1928) and its
+caller _SIFT3D_extract_descriptors (sift.c:2207-2243), as
+``sift3d_tpu/features/descriptor.py`` does:
+
+- window = sphere of radius 2 * sigma, sigma = sd * 5*sqrt(2), in real-world
+  units around the keypoint (sift.c:1845-1846);
+- displacements and Gaussian-weighted, unit-corrected gradients rotated
+  into the keypoint frame by R^T, accumulated by trilinear spatial x
+  3-vertex barycentric icosahedral interpolation into 4x4x4 x 12 bins
+  (``ops/cuda_window.descrip_window``: the CUDA kernel on the card, its
+  plain PyTorch version on the CPU);
+- normalize -> truncate at 0.2*128/768 -> renormalize (sift.c:1794-1821,
+  1909-1918); coordinates written back at base-octave scale (sift.c:1920).
+
+Keypoints are bucketed by pyramid level: every keypoint of a level shares
+its window geometry.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+
+import numpy as np
+import torch
+
+from ..config import DESC_NUMEL, DESC_RAD_FCTR, DESC_SIG_FCTR, TRUNC_THRESH
+from ..dtypes import F64
+from ..ops.cuda_window import descrip_window
+from .detect import kp_levels
+from .keypoints import Keypoints
+from .windows import window_extent
+
+_DBL_EPSILON = 2.220446049250313e-16
+
+
+@dataclasses.dataclass
+class Descriptors:
+    """Descriptor set (reference SIFT3D_Descriptor, imtypes.h:291-296).
+    Coordinates are in base-octave (image) space; rows >= count are
+    padding."""
+    xyz: torch.Tensor   # (K, 3) f64
+    sd: torch.Tensor    # (K,) f64
+    vec: torch.Tensor   # (K, 768) f32
+    count: int
+
+    @property
+    def capacity(self) -> int:
+        return self.vec.shape[0]
+
+    def valid_mask(self) -> torch.Tensor:
+        return torch.arange(self.capacity, device=self.vec.device) < self.count
+
+
+def postprocess(raw: torch.Tensor) -> torch.Tensor:
+    """normalize -> truncate -> normalize (sift.c:1794-1821, 1909-1918)."""
+    def normalize(v):
+        norm = torch.sqrt(torch.sum(v.to(F64) ** 2, -1, keepdim=True)) \
+            + _DBL_EPSILON
+        return v * (1.0 / norm).float()
+    v = normalize(raw)
+    v = torch.clamp(v, max=TRUNC_THRESH)
+    return normalize(v)
+
+
+def level_geometry(sd: float, units, shape):
+    """(sigma, rad, radii (z, y, x), cores (z, y, x)) of a level's
+    descriptor windows (extract_level, sift.c:1845-1846)."""
+    nz, ny, nx = shape
+    sigma = np.float32(sd) * np.float32(DESC_SIG_FCTR)
+    rad = np.float32(DESC_RAD_FCTR) * sigma
+    Rx = int(math.ceil(float(rad) / units[0]))
+    Ry = int(math.ceil(float(rad) / units[1]))
+    Rz = int(math.ceil(float(rad) / units[2]))
+    cores = (window_extent(Rz, nz, False), window_extent(Ry, ny, False),
+             window_extent(Rx, nx, False))
+    return float(sigma), float(rad), (Rz, Ry, Rx), cores
+
+
+def extract_level(level: torch.Tensor, centers_zyx: torch.Tensor,
+                  R: torch.Tensor, sd: float, units,
+                  count: int | None = None) -> torch.Tensor:
+    """Descriptors (K, 768) for all keypoints of one level; centers_zyx
+    float (K, 3). Rows >= count (default K) are postprocessed zeros."""
+    sigma, rad, radii, cores = level_geometry(sd, units, level.shape)
+    if count is None:
+        count = centers_zyx.shape[0]
+    raw = descrip_window(level, centers_zyx, R, count, radii, cores, units,
+                         sigma, rad)
+    return postprocess(raw)
+
+
+def level_buckets(kp: Keypoints, plan):
+    """Yield ((o, s), rows) for every non-empty level bucket of ``kp``'s
+    valid rows, rows in keypoint order."""
+    valid = kp.valid_mask()
+    for o, s in kp_levels(plan):
+        rows = torch.nonzero(valid & (kp.o == o) & (kp.s == s)).reshape(-1)
+        if rows.numel():
+            yield (o, s), rows
+
+
+def extract_descriptors(gpyr: dict, kp: Keypoints, plan) -> Descriptors:
+    """Descriptors from the detection pyramid (SIFT3D_extract_descriptors,
+    sift.c:2025-2046). Keypoint rows keep their order."""
+    vec = torch.zeros((kp.capacity, DESC_NUMEL), dtype=torch.float32,
+                      device=kp.x.device)
+    for (o, s), rows in level_buckets(kp, plan):
+        centers = torch.stack([kp.z[rows], kp.y[rows], kp.x[rows]], -1).float()
+        vec[rows] = extract_level(gpyr[(o, s)], centers, kp.R[rows],
+                                  plan.gpyr_level(o, s).scale,
+                                  plan.octave_units(o))
+    factor = torch.exp2(kp.o.to(F64))
+    xyz = torch.stack([kp.x * factor, kp.y * factor, kp.z * factor], -1)
+    return Descriptors(xyz=xyz, sd=kp.sd, vec=vec, count=kp.count)

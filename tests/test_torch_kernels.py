@@ -1,0 +1,108 @@
+"""The port's CUDA kernels against their plain PyTorch versions.
+
+These need the card (the kernels are built with nvcc for sm_90a and have
+no CPU mode) and skip elsewhere; on a machine with the card run
+``python -m pytest --noconftest tests/test_torch_kernels.py -q`` (this
+file needs no JAX, which ``tests/conftest.py`` imports). ``chip_smoke.py``
+repeats both checks at the shapes of a 256^3 registration.
+"""
+
+import math
+
+import numpy as np
+import pytest
+import torch
+
+from sift3d_tpu_torch.config import DESC_RAD_FCTR, DESC_SIG_FCTR
+from sift3d_tpu_torch.features.match import nn_match
+from sift3d_tpu_torch.features.windows import window_extent
+from sift3d_tpu_torch.ops import cuda_match, cuda_window
+
+torch.set_num_threads(1)
+
+
+@pytest.fixture()
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels run only on the card")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def _level(rng, shape):
+    nz, ny, nx = shape
+    z, y, x = np.meshgrid(np.arange(nz), np.arange(ny), np.arange(nx),
+                          indexing="ij")
+    vol = np.zeros(shape)
+    for _ in range(30):
+        c = rng.uniform(0, nz, 3)
+        s = rng.uniform(1.5, 4.0)
+        vol += rng.uniform(-1, 1) * np.exp(
+            -((z - c[0]) ** 2 + (y - c[1]) ** 2 + (x - c[2]) ** 2)
+            / (2 * s * s))
+    return vol.astype(np.float32)
+
+
+@pytest.mark.parametrize("units", [(1.0, 1.0, 1.0), (1.0, 1.3, 0.8)])
+def test_descrip_window_kernel_matches_plain(cuda, units):
+    rng = np.random.default_rng(0)
+    shape = (40, 44, 36)
+    level = torch.as_tensor(_level(rng, shape))
+    K, count = 24, 20
+    centers = torch.as_tensor(np.stack(
+        [rng.uniform(2, n - 3, K) for n in shape], -1).astype(np.float32))
+    R = torch.as_tensor(np.array([np.linalg.qr(a)[0] for a in
+                                  rng.standard_normal((K, 3, 3))],
+                                 np.float32))
+    sd = 1.6
+    sigma = float(np.float32(sd) * np.float32(DESC_SIG_FCTR))
+    rad = float(np.float32(DESC_RAD_FCTR) * np.float32(sigma))
+    radii = tuple(int(math.ceil(rad / u)) for u in units[::-1])
+    cores = tuple(window_extent(r, n, False) for r, n in zip(radii, shape))
+    args = (count, radii, cores, units, sigma, rad)
+    want = cuda_window.descrip_window(level, centers, R, *args)
+    before = cuda_window.descrip_window.launches
+    got = cuda_window.descrip_window(level.to(cuda), centers.to(cuda),
+                                     R.to(cuda), *args)
+    torch.cuda.synchronize()
+    assert cuda_window.descrip_window.launches == before + 1
+    got = got.cpu()
+    assert torch.all(got[count:] == 0)
+    scale = want.abs().max()
+    assert (got - want).abs().max() <= 1e-4 * scale
+
+
+def test_match_kernel_matches_plain_and_dense(cuda):
+    rng = np.random.default_rng(1)
+    d1 = rng.random((700, 768)).astype(np.float32)
+    d2 = rng.random((650, 768)).astype(np.float32)
+    d1 /= np.linalg.norm(d1, axis=1, keepdims=True)
+    d2 /= np.linalg.norm(d2, axis=1, keepdims=True)
+    for i in range(200):
+        d2[(i * 3) % 650] = d1[i] + rng.normal(0, 0.004, 768)
+    d2[600] = d2[3]
+    d1[650] = d1[7]
+    v1 = torch.ones(700, dtype=torch.bool)
+    v1[[5, 600]] = False
+    v2 = torch.ones(650, dtype=torch.bool)
+    v2[[11]] = False
+    t1, t2 = torch.as_tensor(d1), torch.as_tensor(d2)
+    inf = float("inf")
+    qsq = torch.where(v1, torch.sum(t1 * t1, 1), inf)
+    tsq = torch.where(v2, torch.sum(t2 * t2, 1), inf)
+    plain = cuda_match.reduce_one_way_plain(t1, t2, qsq, tsq)
+    before = cuda_match.reduce_one_way.launches
+    got = cuda_match.reduce_one_way(t1.to(cuda), t2.to(cuda), qsq.to(cuda),
+                                    tsq.to(cuda))
+    torch.cuda.synchronize()
+    assert cuda_match.reduce_one_way.launches == before + 1
+    np.testing.assert_array_equal(got[2].cpu().numpy(), plain[2].numpy())
+    for a, b in zip(got[:2], plain[:2]):
+        np.testing.assert_allclose(a.cpu().numpy(), b.numpy(), rtol=1e-5,
+                                   atol=1e-5)
+    m_stream = cuda_match.nn_match_streamed(t1.to(cuda), t2.to(cuda), 0.8,
+                                            v1.to(cuda), v2.to(cuda))
+    m_dense = nn_match(t1.to(cuda), t2.to(cuda), 0.8, v1.to(cuda),
+                       v2.to(cuda))
+    np.testing.assert_array_equal(m_stream.cpu().numpy(),
+                                  m_dense.cpu().numpy())

@@ -1,0 +1,121 @@
+"""Rules of the PyTorch port: it imports neither JAX nor the JAX package,
+its entry points refuse to run on the CPU unless asked, and every kernel
+wrapper dispatches by the device of its input (plain version on the CPU)."""
+
+import ast
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+from sift3d_tpu_torch import RegSift3D, Sift3D
+from sift3d_tpu_torch.config import MatchParams, RansacParams, SIFT3DParams
+from sift3d_tpu_torch.convert import params_from_dict
+from sift3d_tpu_torch.dtypes import resolve_device
+from sift3d_tpu_torch.ops import cuda_match, cuda_window
+
+torch.set_num_threads(1)
+
+ROOT = Path(__file__).resolve().parents[1]
+PORT = ROOT / "sift3d_tpu_torch"
+
+
+def test_import_pulls_in_no_jax():
+    code = ("import sys, sift3d_tpu_torch, sift3d_tpu_torch.api, "
+            "sift3d_tpu_torch.convert, sift3d_tpu_torch.ops.cuda_match, "
+            "sift3d_tpu_torch.ops.cuda_window\n"
+            "bad = [m for m in sys.modules if m == 'jax' or "
+            "m.startswith(('jax.', 'jaxlib', 'sift3d_tpu.')) or "
+            "m == 'sift3d_tpu']\n"
+            "print(bad)\nsys.exit(1 if bad else 0)\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stdout + out.stderr
+
+
+@pytest.mark.parametrize("path", sorted(
+    str(p.relative_to(ROOT)) for p in
+    list(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]))
+def test_sources_name_no_jax(path):
+    tree = ast.parse((ROOT / path).read_text())
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names = [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom):
+            names = [node.module or ""]
+        else:
+            continue
+        for name in names:
+            top = name.split(".")[0]
+            assert top not in ("jax", "jaxlib", "sift3d_tpu"), (path, name)
+
+
+def test_entry_points_refuse_cpu_fallback():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default device is valid")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        Sift3D()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        RegSift3D()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        resolve_device("cuda")
+    assert resolve_device("cpu") == torch.device("cpu")
+
+
+def test_entry_points_pin_full_fp32():
+    torch.backends.cuda.matmul.allow_tf32 = True
+    torch.backends.cudnn.allow_tf32 = True
+    Sift3D(device="cpu")
+    assert not torch.backends.cuda.matmul.allow_tf32
+    assert not torch.backends.cudnn.allow_tf32
+
+
+def test_wrappers_run_plain_on_cpu_without_counting():
+    before = (cuda_window.descrip_window.launches,
+              cuda_match.reduce_one_way.launches)
+    level = torch.zeros((12, 12, 12))
+    out = cuda_window.descrip_window(
+        level, torch.full((2, 3), 6.0), torch.eye(3).expand(2, 3, 3), 1,
+        (3, 3, 3), (8, 8, 8), (1.0, 1.0, 1.0), 1.0, 2.0)
+    assert out.shape == (2, 768) and not out.any()
+    q = torch.ones((3, 768))
+    best, _, idx = cuda_match.reduce_one_way(q, q, q.sum(1), q.sum(1))
+    assert idx.tolist() == [0, 0, 0] and (best == 0).all()
+    assert (cuda_window.descrip_window.launches,
+            cuda_match.reduce_one_way.launches) == before
+
+
+@pytest.mark.parametrize("cls,kw", [
+    (SIFT3DParams, dict(peak_thresh=0.05, max_kp_per_octave=[192, 64])),
+    (MatchParams, dict(nn_thresh=0.7, impl="streamed")),
+    (RansacParams, dict(num_iter=50, seed=3)),
+])
+def test_params_from_dict(cls, kw):
+    p = params_from_dict(cls, kw)
+    assert isinstance(p, cls)
+    for k, v in kw.items():
+        assert getattr(p, k) == (tuple(v) if isinstance(v, list) else v)
+    with pytest.raises(ValueError):
+        params_from_dict(cls, dict(kw, bogus=1))
+
+
+@pytest.mark.parametrize("name,default,other", [
+    ("dense_rotate", False, True),
+    ("fused_bucket_cap", 512, 64),
+])
+def test_params_from_dict_jax_only_fields(name, default, other):
+    p = params_from_dict(SIFT3DParams, {"peak_thresh": 0.05, name: default})
+    assert p == SIFT3DParams(peak_thresh=0.05)
+    assert not hasattr(p, name)
+    with pytest.raises(ValueError, match=name):
+        params_from_dict(SIFT3DParams, {name: other})
+
+
+def test_small_volume_rejected():
+    with pytest.raises(ValueError, match="too small"):
+        Sift3D(device="cpu").detect(np.zeros((6, 16, 16), np.float32))
