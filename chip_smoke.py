@@ -3,27 +3,44 @@
     python3 chip_smoke.py
 
 Builds the port's CUDA kernels from ``sift3d_tpu_torch/csrc`` (nvcc,
-sm_90a, into ``build/kernels/``), then:
+sm_90a, one process per source, into ``build/kernels/``), then:
 
-1. holds the descriptor-window kernel against its plain PyTorch version on
-   the real pyramid levels of a 256^3 volume (max abs deviation <= 2e-3 on
-   the postprocessed descriptors, rows past ``count`` zero);
-2. holds the streamed-matcher kernel against its plain version, at the
+1. holds the descriptor-window kernel (1) against its plain PyTorch
+   version on the real pyramid levels of a 256^3 volume (max abs deviation
+   <= 2e-3 on the postprocessed descriptors, rows past ``count`` zero);
+2. holds the orientation-window kernel (3) against its plain version on
+   every level bucket of the same volume's extrema (first 64 rows, and 5
+   rows past ``count`` that must come back zero): the float64 tensor sums
+   and the window gradient within 1e-5 of the row's largest |term|, and the
+   keypoint sets that follow equal (``valid`` exact, R within 1e-4) except
+   on rows whose plain eigenvalue ratio or corner score lies within 1e-5
+   of its threshold, which are counted;
+3. holds the streamed-matcher kernel (2) against its plain version, at the
    main path's arguments and at multi-tile sizes with invalid and
    duplicated rows, and against the dense matcher (best and second SSD
    within fp32 rounding, indices exact; a row may differ only where the
    plain version's two SSDs agree to fp32 rounding, and such rows are
    counted);
-3. drives the main path, ``RegSift3D().register(src, ref)``, on the 256^3
-   volume and its copy rolled by ``SHIFT`` voxels along x, once with the
-   default matcher and once with ``MatchParams(impl="streamed")``, with the
-   kernels' launch counters set to 0 just before each run and read just
-   after; both affines must meet the reference's 5e-2 / 5-voxel contract;
-   then registers the first 16 config-4 pairs (64^3) and asserts a pass
-   rate >= 0.60;
-4. times each kernel, its plain version and a library yardstick, and
-   profiles one 256^3 registration: each stage's ``sift3d.<stage>`` span
-   on the host and the device, the device's busy time and idle share
+4. drives ``RegSift3D().register(src, ref)`` on the 256^3 volume and its
+   copy rolled by ``SHIFT`` voxels along x, once with the default matcher
+   and once with ``MatchParams(impl="streamed")``, with the kernels' launch
+   counters set to 0 just before each run and read just after; both
+   affines must meet the reference's 5e-2 / 5-voxel contract; then
+   registers the first 16 config-4 pairs (64^3) one at a time and asserts
+   a pass rate >= 0.60;
+5. checks kernels 3 and 1 on one level bucket of the config-4 batch, with
+   the rows of many volumes in one launch (1e-5 and 2e-3 as above), then
+   drives the batched path, ``parallel.pipeline.batch_register_pairs``, on
+   64 config-4 pairs at ``bench.py``'s caps, counters set to 0 just before
+   and read just after: kernels 1 and 3 launch once per non-empty level
+   bucket of each side (not once per volume), no pair reports
+   ``kp_overflow``, the pass rate is >= 0.60, and the first 16 pairs agree
+   with the sequential results of phase 4 (``ok`` on >= 15, A within 1e-3
+   where both are ok);
+6. times each kernel, its plain version and a library yardstick, the
+   batched call (min of 5, pairs/s), and profiles one 256^3 registration
+   and one batched call: each stage's ``sift3d.<stage>`` span on the host
+   and the device, the device's busy time and idle share
    (``scripts/profile_register.profile_call``).
 
 Prints the card's name and power limit, a ``{"kernels": [...]}`` line and,
@@ -54,8 +71,16 @@ TIE_RTOL = 1e-6            # fp32 rounding band for matcher near-ties
 # Rounding of a 768-term fp32 SSD, relative to |q|^2 + |t|^2 (n u, twice).
 SSD_BAND = 2 * 768 * 2.0 ** -24
 T2 = torch.tensor(0.8, dtype=torch.float32) ** 2   # the ratio test, squared
+ORIENT_RTOL = 1e-5         # kernel 3 vs plain, relative to the row's max
+ORIENT_R_TOL = 1e-4        # R of rows valid on both sides
+NEAR_THRESH = 1e-5         # band around the 0.90 ratio and corner tests
+BATCH_PAIRS = 64           # bench.py's config-4 batch
+BATCH_SHAPE = (64, 64, 64)
+BATCH_CAPS = dict(max_kp_per_level=192, max_kp_per_octave=(192, 64, 64, 32))
+BATCH_CHECK_ROWS = 512     # kernel-1 rows of the batched bucket check
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
 FP32_OPS_PER_S = 67e12     # H100 SXM fp32 outside the tensor cores
+FP64_OPS_PER_S = 34e12     # H100 SXM fp64 outside the tensor cores
 
 
 def log(*a):
@@ -84,51 +109,135 @@ def cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-def bound_ms(nbytes: float, ops: float) -> tuple[float, str]:
+def bound_ms(nbytes: float, ops: float, ops64: float = 0.0
+             ) -> tuple[float, str]:
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / FP32_OPS_PER_S * 1e3
+    t_ops = (ops / FP32_OPS_PER_S + ops64 / FP64_OPS_PER_S) * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def level_args(s3d, kp, limit=None):
-    """Kernel-1 arguments of every non-empty level bucket of ``kp``."""
+def level_args(gpyr, plan, kp, vol=None, limit=None, step=1):
+    """Kernel-1 arguments of every non-empty level bucket of ``kp`` (rows
+    of a batch when ``vol`` gives each row's volume)."""
     from sift3d_tpu_torch.features.descriptor import (level_buckets,
                                                       level_geometry)
     out = []
-    for (o, s), rows in level_buckets(kp, s3d._plan):
-        rows = rows[:limit]
-        level = s3d._gpyr[(o, s)]
-        units = s3d._plan.octave_units(o)
+    for (o, s), rows in level_buckets(kp, plan):
+        rows = rows[::step][:limit]
+        level = gpyr[(o, s)]
+        units = plan.octave_units(o)
         sigma, rad, radii, cores = level_geometry(
-            s3d._plan.gpyr_level(o, s).scale, units, level.shape)
+            plan.gpyr_level(o, s).scale, units, level.shape[-3:])
         centers = torch.stack([kp.z[rows], kp.y[rows], kp.x[rows]], -1).float()
         out.append(((o, s), (level, centers, kp.R[rows], len(rows), radii,
-                             cores, units, sigma, rad)))
+                             cores, units, sigma, rad,
+                             None if vol is None else vol[rows])))
     return out
 
 
-def check_descrip_window(s3d, kp) -> float:
+def extrema_of(vols, plan, params, dev):
+    """The pyramid and the batched extrema rows of a (B, nz, ny, nx)
+    stack, as ``features.detect.detect`` computes them."""
+    from sift3d_tpu_torch import pyramid as pyr
+    from sift3d_tpu_torch.features.detect import detect_extrema_levels
+    v = torch.as_tensor(np.asarray(vols)).to(device=dev, dtype=torch.float32)
+    gpyr = pyr.build_gpyr(pyr.im_scale(v), plan)
+    return gpyr, detect_extrema_levels(pyr.build_dog(gpyr, plan), plan,
+                                       params)
+
+
+def orient_args(gpyr, ext, plan, limit=None):
+    """Kernel-3 arguments of every level with extrema rows (the rows of
+    all the volumes of the stack)."""
+    from sift3d_tpu_torch.features.detect import kp_levels
+    from sift3d_tpu_torch.features.orientation import level_geometry
+    out = []
+    for o, s in kp_levels(plan):
+        rows = ext[(o, s)][0][:limit]
+        if not rows.shape[0]:
+            continue
+        level = gpyr[(o, s)]
+        units = plan.octave_units(o)
+        sigma, rad, radii, cores = level_geometry(
+            plan.gpyr_level(o, s).scale, units, level.shape[-3:])
+        out.append(((o, s), (level, rows[:, 1:], rows.shape[0], radii, cores,
+                             units, sigma, rad, rows[:, 0])))
+    return out
+
+
+def check_orient(buckets, corner_thresh, label) -> dict:
+    """Kernel 3 against its plain version on each bucket (5 extra rows past
+    count must be zero), then the keypoint sets that follow."""
+    from sift3d_tpu_torch.features.orientation import (
+        orientation_scores, orientations_from_tensor)
+    from sift3d_tpu_torch.ops.cuda_orient import (orient_terms,
+                                                  orient_terms_plain)
+    worst_rel = worst_abs = 0.0
+    near = rows = 0
+    for lv, a in buckets:
+        level, zyx, n, geom, vol = a[0], a[1], a[2], a[3:8], a[8]
+        pad = 5
+        zyx_p = torch.cat([zyx, zyx[:1].expand(pad, 3)])
+        vol_p = torch.cat([vol, vol[:1].expand(pad)])
+        A_k, vd_k = orient_terms(level, zyx_p, n, *geom, vol_p)
+        A_p, vd_p = orient_terms_plain(level, zyx, n, *geom, vol)
+        torch.cuda.synchronize()
+        assert A_k.dtype == torch.float64, "kernel 3 sums must be float64"
+        assert torch.all(A_k[n:] == 0) and torch.all(vd_k[n:] == 0), \
+            f"{label} {lv}: rows past count not zero"
+        A_k, vd_k = A_k[:n], vd_k[:n]
+        scale = torch.maximum(A_p.abs().amax(1), vd_p.abs().amax(1).double())
+        dev_ = torch.maximum((A_k - A_p).abs().amax(1),
+                             (vd_k - vd_p).abs().amax(1).double())
+        rel = (dev_ / scale.clamp(min=1e-300)).max().item()
+        worst_rel = max(worst_rel, rel)
+        worst_abs = max(worst_abs, dev_.max().item())
+        assert rel <= ORIENT_RTOL, f"{label} {lv}: kernel 3 rel dev {rel:.3e}"
+
+        R_k, ok_k = orientations_from_tensor(A_k, vd_k, corner_thresh)
+        R_p, ok_p = orientations_from_tensor(A_p, vd_p, corner_thresh)
+        _, _, ratio, corner = orientation_scores(A_p, vd_p)
+        near_rows = ((ratio - 0.90).abs() <= NEAR_THRESH).any(-1) | \
+            ((corner - corner_thresh).abs() <= NEAR_THRESH)
+        r_dev = (R_k - R_p).abs().amax((1, 2))
+        diff = (ok_k != ok_p) | (ok_k & ok_p & (r_dev > ORIENT_R_TOL))
+        bad = diff & ~near_rows
+        assert not bad.any(), \
+            f"{label} {lv}: {int(bad.sum())} keypoint rows differ from plain"
+        near += int(diff.sum())
+        rows += n
+    print(f"orient_window vs plain ({label}): {rows} rows over "
+          f"{len(buckets)} level buckets, max rel dev {worst_rel:.3e} "
+          f"(tolerance {ORIENT_RTOL}), max abs dev {worst_abs:.3e}; "
+          f"keypoint sets equal except {near} near-threshold rows")
+    return dict(rows=rows, buckets=len(buckets), max_rel_err=worst_rel,
+                max_abs_err=worst_abs, near_threshold_rows=near)
+
+
+def check_descrip_window(buckets, label) -> float:
     from sift3d_tpu_torch.features.descriptor import postprocess
     from sift3d_tpu_torch.ops.cuda_window import (descrip_window,
                                                   descrip_window_plain)
     worst = 0.0
-    buckets = level_args(s3d, kp, N_CHECK_ROWS)
-    assert buckets, "no keypoints on the 256^3 volume"
+    assert buckets, f"no keypoints ({label})"
     for lv, args in buckets:
         level, centers, R, n = args[:4]
+        geom, vol = args[4:9], args[9]
         pad = 5   # rows past count: the kernel must write zeros there
         centers_p = torch.cat([centers, centers[:1].expand(pad, 3)])
         R_p = torch.cat([R, R[:1].expand(pad, 3, 3)])
-        got = descrip_window(level, centers_p, R_p, n, *args[4:])
-        want = descrip_window_plain(level, centers, R, n, *args[4:])
+        vol_p = None if vol is None else torch.cat([vol, vol[:1].expand(pad)])
+        got = descrip_window(level, centers_p, R_p, n, *geom, vol_p)
+        want = descrip_window_plain(level, centers, R, n, *geom, vol)
         torch.cuda.synchronize()
         assert torch.all(got[n:] == 0), f"rows past count not zero at {lv}"
         dev = (postprocess(got[:n]) - postprocess(want)).abs().max().item()
-        log(f"kernel 1 level {lv}: {n} rows, cores {args[5]}, "
+        log(f"kernel 1 ({label}) level {lv}: {n} rows, cores {args[5]}, "
             f"max |dev| {dev:.3e}")
         worst = max(worst, dev)
-    print(f"descrip_window vs plain: max abs deviation {worst:.3e} over "
-          f"{len(buckets)} level buckets (tolerance {DESC_TOL})")
+    print(f"descrip_window vs plain ({label}): max abs deviation "
+          f"{worst:.3e} over {len(buckets)} level buckets "
+          f"(tolerance {DESC_TOL})")
     assert worst <= DESC_TOL, worst
     return worst
 
@@ -239,6 +348,26 @@ def check_match_kernel(d_src, d_ref, dev) -> dict:
                 max_abs_err=max_err)
 
 
+def count_buckets(kp, ext) -> tuple[int, int]:
+    """(levels whose extrema feed kernel 3, levels whose keypoints feed
+    kernel 1) of one side of a batch: the launches each kernel should
+    make, once per non-empty level bucket."""
+    n_orient = sum(int(rows.shape[0] > 0) for rows, _, _ in ext.values())
+    valid = kp.valid_mask()
+    n_desc = len({(int(o), int(s)) for o, s in
+                  zip(kp.o[valid].tolist(), kp.s[valid].tolist())})
+    return n_orient, n_desc
+
+
+def work_sum(fn, args) -> list[float]:
+    """Elementwise sum of ``fn(*a)`` over the argument lists."""
+    tot = None
+    for a in args:
+        w = fn(*a)
+        tot = list(w) if tot is None else [x + y for x, y in zip(tot, w)]
+    return tot
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         log("chip_smoke: no CUDA device available")
@@ -246,11 +375,15 @@ def main() -> int:
     sys.path.insert(0, ROOT)
     from benches.data import SHIFT, make_pairs, make_volume, pair_ok
     from scripts.profile_register import profile_call
-    from sift3d_tpu_torch import RegSift3D, _build
+    from sift3d_tpu_torch import RegSift3D, SIFT3DParams, _build
+    from sift3d_tpu_torch import pyramid as pyr
     from sift3d_tpu_torch.config import MatchParams
-    from sift3d_tpu_torch.ops import cuda_match, cuda_window
+    from sift3d_tpu_torch.features import detect as detect_mod
+    from sift3d_tpu_torch.ops import cuda_match, cuda_orient, cuda_window
     from sift3d_tpu_torch.ops.cuda_match import (reduce_one_way,
                                                  reduce_one_way_plain)
+    from sift3d_tpu_torch.parallel.pipeline import (batch_detect_describe,
+                                                    batch_register_pairs)
 
     dev = torch.device("cuda")
     card = card_line()
@@ -270,17 +403,28 @@ def main() -> int:
     reg = RegSift3D(device=dev)
     assert not torch.backends.cuda.matmul.allow_tf32
     assert not torch.backends.cudnn.allow_tf32
+    params = reg.sift.params
 
     src = make_volume((SIZE,) * 3, nblob=NBLOB, seed=SEED)
     ref = np.roll(src, SHIFT, axis=2)
 
-    # 2. Kernel 1 against its plain version on the real pyramid levels.
+    # 2. Kernels 1 and 3 against their plain versions on the real pyramid
+    # levels of the 256^3 volume.
     s3d = reg.sift
     kp_src, d_src = s3d.detect_and_extract(src)
-    worst1 = check_descrip_window(s3d, kp_src)
-    k1_args = level_args(s3d, kp_src)
+    plan = s3d._plan
+    worst1 = check_descrip_window(
+        level_args(s3d._gpyr, plan, kp_src, limit=N_CHECK_ROWS), "256^3")
+    k1_args = level_args(s3d._gpyr, plan, kp_src)
+    k3_args = []
+    for vol in (src, ref):
+        gpyr, ext = extrema_of(vol[None], plan, params, dev)
+        k3_args += orient_args(gpyr, ext, plan)
+    k3_check = check_orient(
+        orient_args(*extrema_of(src[None], plan, params, dev), plan,
+                    limit=N_CHECK_ROWS), params.corner_thresh, "256^3")
     kp_ref, d_ref = s3d.detect_and_extract(ref)
-    k1_args += level_args(s3d, kp_ref)
+    k1_args += level_args(s3d._gpyr, plan, kp_ref)
 
     # 3. Kernel 2 against its plain version (at the main path's arguments
     # and at multi-tile sizes) and against the dense matcher.
@@ -293,42 +437,115 @@ def main() -> int:
         r = RegSift3D(match_params=mp, device=dev)
         cuda_window.descrip_window.launches = 0
         cuda_match.reduce_one_way.launches = 0
+        cuda_orient.orient_terms.launches = 0
         res = r.register(src, ref)
         torch.cuda.synchronize()
         counts = (cuda_window.descrip_window.launches,
-                  cuda_match.reduce_one_way.launches)
+                  cuda_match.reduce_one_way.launches,
+                  cuda_orient.orient_terms.launches)
         ok = bool(res.ok and pair_ok(res.A) and not res.kp_overflow)
         print(f"register {SIZE}^3 ({label} matcher): ok={ok}, "
               f"matches {len(res.match_src)}, inliers {res.num_inliers}, "
               f"launches descrip_window {counts[0]} match_stream "
-              f"{counts[1]}, A={np.round(res.A, 4).tolist()}")
+              f"{counts[1]} orient_window {counts[2]}, "
+              f"A={np.round(res.A, 4).tolist()}")
         assert ok, f"{SIZE}^3 pair outside the contract ({label})"
         assert counts[0] > 0, "descrip_window never launched"
+        assert counts[2] > 0, "orient_window never launched"
         runs[label] = dict(counts=counts, n_matches=len(res.match_src),
                            inliers=res.num_inliers, A=res.A.tolist())
     assert runs["streamed"]["counts"][1] > 0, "match_stream never launched"
     detail["runs"] = runs
 
-    src4, ref4 = make_pairs(CONFIG4_PAIRS, (64, 64, 64))
-    passed = []
-    for s4, r4 in zip(src4, ref4):
+    src4, ref4 = make_pairs(BATCH_PAIRS, BATCH_SHAPE)
+    seq = []
+    for s4, r4 in zip(src4[:CONFIG4_PAIRS], ref4[:CONFIG4_PAIRS]):
         res = reg.register(s4, r4)
-        passed.append(bool(res.ok and pair_ok(res.A)))
-    rate = float(np.mean(passed))
-    print(f"config-4 pairs: {sum(passed)}/{CONFIG4_PAIRS} pass the contract "
-          f"(rate {rate:.3f}, gate {GATE_PASS_RATE})")
+        seq.append((bool(res.ok and pair_ok(res.A)), bool(res.ok), res.A))
+    rate = float(np.mean([p for p, _, _ in seq]))
+    print(f"config-4 pairs, one at a time: {sum(p for p, _, _ in seq)}/"
+          f"{CONFIG4_PAIRS} pass the contract (rate {rate:.3f}, gate "
+          f"{GATE_PASS_RATE})")
     assert rate >= GATE_PASS_RATE, rate
     detail["config4_pass_rate"] = rate
 
-    # 5. Times (everything above was the warm-up).
+    # 5. The batched config-4 path: kernels 3 and 1 on one batched level
+    # bucket, then batch_register_pairs with its launches counted.
+    params4 = SIFT3DParams(**BATCH_CAPS)
+    plan4 = pyr.plan_pyramid(BATCH_SHAPE[::-1], (1.0, 1.0, 1.0), params4)
+    sides = []
+    for vols in (src4, ref4):
+        gpyr4, ext4 = extrema_of(vols, plan4, params4, dev)
+        kp4, _, _ = batch_detect_describe(vols, plan4, params4, dev)
+        sides.append((gpyr4, ext4, count_buckets(kp4, ext4)))
+    gpyr4, ext4 = sides[0][:2]
+    k3_batch_args = [a for g, e, _ in sides for a in orient_args(g, e, plan4)]
+    fullest = max(orient_args(gpyr4, ext4, plan4), key=lambda b: b[1][2])
+    n_vols = int(fullest[1][8].unique().numel())
+    k3_batch_check = check_orient([fullest], params4.corner_thresh,
+                                  f"config-4 batch, {n_vols} volumes")
+    kp_flat, vol_flat = detect_mod.orient_levels(gpyr4, ext4, plan4, params4)
+    k1_batch_args = []
+    for g, e, _ in sides:
+        k, v = detect_mod.orient_levels(g, e, plan4, params4)
+        k1_batch_args += level_args(g, plan4, k, v)
+    # Kernel 1 on the same level bucket, every step-th row (rows of many
+    # volumes; the plain version is slow at the full bucket).
+    bucket = [b for b in level_args(gpyr4, plan4, kp_flat, vol_flat)
+              if b[0] == fullest[0]]
+    step = max(1, bucket[0][1][3] // BATCH_CHECK_ROWS)
+    fullest1 = [b for b in level_args(gpyr4, plan4, kp_flat, vol_flat,
+                                      step=step) if b[0] == fullest[0]][0]
+    n_vols1 = int(fullest1[1][9].unique().numel())
+    worst1_batch = check_descrip_window([fullest1],
+                                        f"config-4 batch, {n_vols1} volumes")
+
+    expect = [sum(side[2][i] for side in sides) for i in range(2)]
+    cuda_window.descrip_window.launches = 0
+    cuda_orient.orient_terms.launches = 0
+    cuda_match.reduce_one_way.launches = 0
+    t0 = time.perf_counter()
+    bres = batch_register_pairs(src4, ref4, plan4, params4, device=dev)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    batch_counts = (cuda_window.descrip_window.launches,
+                    cuda_match.reduce_one_way.launches,
+                    cuda_orient.orient_terms.launches)
+    A4 = bres.A.cpu().numpy()
+    ok4 = bres.ok.cpu().numpy()
+    passed4 = ok4 & pair_ok(A4)
+    rate4 = float(passed4.mean())
+    n_over = int(bres.kp_overflow.sum())
+    print(f"batch_register_pairs, {BATCH_PAIRS} config-4 pairs: "
+          f"{int(passed4.sum())}/{BATCH_PAIRS} pass (rate {rate4:.3f}, gate "
+          f"{GATE_PASS_RATE}), kp_overflow on {n_over} pairs; launches "
+          f"orient_window {batch_counts[2]} (non-empty level buckets "
+          f"{expect[0]}), descrip_window {batch_counts[0]} (non-empty "
+          f"{expect[1]}), match_stream {batch_counts[1]}; first call "
+          f"{first_s:.2f} s")
+    assert n_over == 0, "kp_overflow in the config-4 batch"
+    assert rate4 >= GATE_PASS_RATE, rate4
+    assert batch_counts[2] == expect[0], (batch_counts, expect)
+    assert batch_counts[0] == expect[1], (batch_counts, expect)
+    same_ok = sum(int(ok4[b]) == int(seq[b][1]) for b in range(CONFIG4_PAIRS))
+    both = [b for b in range(CONFIG4_PAIRS) if ok4[b] and seq[b][1]]
+    a_dev = max((np.abs(A4[b] - seq[b][2]).max() for b in both), default=0.0)
+    print(f"batched vs one at a time, first {CONFIG4_PAIRS} pairs: ok equal "
+          f"on {same_ok}, max |A dev| {a_dev:.3e} over {len(both)} pairs "
+          f"ok on both")
+    assert same_ok >= CONFIG4_PAIRS - 1, same_ok
+    assert a_dev <= 1e-3, a_dev
+    detail["batch"] = dict(pass_rate=rate4, counts=batch_counts,
+                           expected=expect, same_ok=same_ok, a_dev=a_dev)
+
+    # 6. Times (everything above was the warm-up).
+    from sift3d_tpu_torch.ops.cuda_orient import (orient_terms,
+                                                  orient_terms_plain,
+                                                  orient_work)
     from sift3d_tpu_torch.ops.cuda_window import (descrip_window,
                                                   descrip_window_plain,
                                                   descrip_work)
-    nbytes = ops = 0
-    for _, a in k1_args:
-        b, o = descrip_work(*a)
-        nbytes += b
-        ops += o
+    nbytes, ops = work_sum(descrip_work, [a for _, a in k1_args])
     b1, by1 = bound_ms(nbytes, ops)
     k1_ms = cuda_ms(lambda: [descrip_window(*a) for _, a in k1_args], 5)
     k1_plain = cuda_ms(lambda: [descrip_window_plain(*a) for _, a in k1_args],
@@ -336,6 +553,36 @@ def main() -> int:
     detail["descrip_window"] = dict(
         buckets=[dict(level=lv, rows=a[3], cores=a[5]) for lv, a in k1_args],
         bytes=nbytes, ops=ops)
+    nb1, op1 = work_sum(descrip_work, [a for _, a in k1_batch_args])
+    b1_batch, by1_batch = bound_ms(nb1, op1)
+    k1_batch_ms = cuda_ms(lambda: [descrip_window(*a)
+                                   for _, a in k1_batch_args], 3)
+    k1_batch_plain = cuda_ms(lambda: [descrip_window_plain(*a)
+                                      for _, a in k1_batch_args], 1)
+    print(f"descrip_window per config-4 batch ({len(k1_batch_args)} "
+          f"launches, {sum(a[3] for _, a in k1_batch_args)} rows): "
+          f"{k1_batch_ms:.3f} ms, plain {k1_batch_plain:.1f} ms, bound "
+          f"{b1_batch:.4f} ms ({by1_batch}) [{card}]")
+
+    def k3_times(args, reps):
+        nb, o32, o64 = work_sum(orient_work, [a for _, a in args])
+        b, by = bound_ms(nb, o32, o64)
+        return dict(launches=len(args), rows=sum(a[2] for _, a in args),
+                    ms=cuda_ms(lambda: [orient_terms(*a) for _, a in args],
+                               reps),
+                    plain_ms=cuda_ms(lambda: [orient_terms_plain(*a)
+                                              for _, a in args], 1),
+                    bound_ms=b, bound_by=by, bytes=nb, ops32=o32, ops64=o64)
+    k3_256 = k3_times(k3_args, 5)
+    k3_batch = k3_times(k3_batch_args, 5)
+    detail["orient_window"] = dict(reg_256=k3_256, batch=k3_batch)
+    for label, t in (("256^3 registration", k3_256),
+                     ("config-4 batch", k3_batch)):
+        print(f"orient_window per {label} ({t['launches']} launches, "
+              f"{t['rows']} rows): {t['ms']:.4f} ms "
+              f"({t['ms'] / t['launches']:.4f} per launch), plain "
+              f"{t['plain_ms']:.3f} ms, bound {t['bound_ms']:.5f} ms "
+              f"({t['bound_by']}) [{card}]")
 
     def library(q, t, qs, ts):
         D = torch.clamp(qs[:, None] + ts[None, :] - 2.0 * (q @ t.T), min=0)
@@ -363,6 +610,13 @@ def main() -> int:
           f"matmul+topk {k2_big['library_ms']:.4f} ms, bound "
           f"{k2_big['bound_ms']:.4f} ms [{card}]")
 
+    def stage_line(prof):
+        return ", ".join(f"{k} {v['host_ms']:.2f} / {v['device_busy_ms']:.2f}"
+                         for k, v in prof["stages"].items()) + \
+            (f"; total {prof['wall_ms']:.2f}, device busy "
+             f"{prof['device_busy_ms']:.2f}, idle share "
+             f"{prof['idle_share']:.3f}")
+
     calls = []
     for _ in range(3):
         t0 = time.perf_counter()
@@ -373,23 +627,47 @@ def main() -> int:
     detail["register_ms"] = calls
     detail["profile"] = prof
     print(f"stages ms ({SIZE}^3 pair, one profiled call, host span / device "
-          f"busy): " + ", ".join(
-              f"{k} {v['host_ms']:.2f} / {v['device_busy_ms']:.2f}"
-              for k, v in prof["stages"].items())
-          + f"; total {prof['wall_ms']:.2f}, device busy "
-          f"{prof['device_busy_ms']:.2f}, idle share "
-          f"{prof['idle_share']:.3f}; unprofiled register min of 3 "
+          f"busy): {stage_line(prof)}; unprofiled register min of 3 "
           f"{min(calls):.2f} [{card}]")
+
+    bcalls = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        batch_register_pairs(src4, ref4, plan4, params4, device=dev)
+        torch.cuda.synchronize()
+        bcalls.append((time.perf_counter() - t0) * 1e3)
+    _, bprof = profile_call(
+        lambda: batch_register_pairs(src4, ref4, plan4, params4, device=dev))
+    detail["batch_ms"] = bcalls
+    detail["batch_profile"] = bprof
+    print(f"batch_register_pairs ({BATCH_PAIRS} config-4 pairs): min of 5 "
+          f"{min(bcalls):.2f} ms, {BATCH_PAIRS / min(bcalls) * 1e3:.2f} "
+          f"pairs/s [{card}]")
+    print(f"stages ms (config-4 batch, one profiled call, host span / device "
+          f"busy): {stage_line(bprof)} [{card}]")
 
     log("detail: " + json.dumps(detail))
 
+    by_path = {
+        "descrip_window": dict(register_256=runs["default"]["counts"][0],
+                               batch_config4=batch_counts[0]),
+        "match_stream": dict(register_256_streamed=runs["streamed"]["counts"][1],
+                             batch_config4=batch_counts[1]),
+        "orient_window": dict(register_256=runs["default"]["counts"][2],
+                              batch_config4=batch_counts[2]),
+    }
+    per_reg = "all launches of one 256^3 registration"
     kernels = [
         dict(name="descrip_window", route="cuda",
              source="sift3d_tpu_torch/csrc/descrip_window.cu",
              replaces="sift3d_tpu/ops/pallas_window.py:49",
-             launches=runs["default"]["counts"][0], max_abs_err=worst1,
+             launches=batch_counts[0], max_abs_err=max(worst1, worst1_batch),
              ms=k1_ms, plain_ms=k1_plain, bound_ms=b1, bound_by=by1,
-             library_ms=None),
+             library_ms=None, ms_for=per_reg,
+             launches_by_path=by_path["descrip_window"],
+             batch_ms=k1_batch_ms, batch_plain_ms=k1_batch_plain,
+             batch_bound_ms=b1_batch,
+             batch_bound_by=by1_batch),
         dict(name="match_stream", route="cuda",
              source="sift3d_tpu_torch/csrc/match_stream.cu",
              replaces="sift3d_tpu/ops/pallas_match.py:63",
@@ -397,7 +675,24 @@ def main() -> int:
              max_abs_err=detail["match_check"]["max_abs_err"],
              ms=k2_main["ms"], plain_ms=k2_main["plain_ms"],
              bound_ms=k2_main["bound_ms"], bound_by=k2_main["bound_by"],
-             library_ms=k2_main["library_ms"]),
+             library_ms=k2_main["library_ms"],
+             ms_for="one launch (one direction) at the 256^3 pair's shapes",
+             launches_by_path=by_path["match_stream"]),
+        dict(name="orient_window", route="cuda",
+             source="sift3d_tpu_torch/csrc/orient_window.cu",
+             replaces="sift3d_tpu/ops/pallas_orient.py:38",
+             launches=batch_counts[2],
+             max_abs_err=max(k3_check["max_abs_err"],
+                             k3_batch_check["max_abs_err"]),
+             max_rel_err=max(k3_check["max_rel_err"],
+                             k3_batch_check["max_rel_err"]),
+             ms=k3_256["ms"], plain_ms=k3_256["plain_ms"],
+             bound_ms=k3_256["bound_ms"], bound_by=k3_256["bound_by"],
+             library_ms=None, ms_for=per_reg,
+             launches_by_path=by_path["orient_window"],
+             batch_ms=k3_batch["ms"], batch_plain_ms=k3_batch["plain_ms"],
+             batch_bound_ms=k3_batch["bound_ms"],
+             batch_bound_by=k3_batch["bound_by"]),
     ]
     print(card)
     print(json.dumps({"kernels": kernels}))

@@ -9,7 +9,9 @@ exported trace it takes the device's busy time (the union of kernel,
 memcpy and memset intervals), the call's wall time and their ratio (the
 device's idle share), the device time of each kernel name, and for each
 stage's ``sift3d.<stage>`` span (see ``sift3d_tpu_torch/api.py``) its
-host time and its device busy time. Prints one JSON line, tagged with the
+host time and its device busy time. ``profile_call`` reads any call that
+runs inside those spans; ``chip_smoke.py`` also profiles the batched
+``parallel.pipeline.batch_register_pairs`` with it. Prints one JSON line, tagged with the
 card's name and power limit. ``chip_smoke.py`` takes its stage breakdown
 from ``profile_call``.
 """

@@ -10,8 +10,10 @@ dropped as in the JAX package, and reported as ``kp_overflow``.
 Entry points run on the card unless ``device`` names another device; with
 no card they raise instead of running on the CPU. Each stage runs inside a
 ``torch.profiler.record_function`` span named ``sift3d.<stage>``
-(pyramid, extrema, orientation, descriptors, match, ransac), which a
-profiler trace reads as the stage breakdown.
+(pyramid, extrema and orientation in ``features/detect.detect``,
+descriptors here, match and ransac in ``register/pipeline``), which a
+profiler trace reads as the stage breakdown. The batched entry points
+(``parallel.pipeline``) use the same spans.
 """
 
 from __future__ import annotations
@@ -45,27 +47,17 @@ class Sift3D:
         self._kp: Keypoints | None = None
         self.kp_overflow = False
 
-    def _volume(self, im) -> torch.Tensor:
-        vol = torch.as_tensor(np.asarray(im) if not torch.is_tensor(im)
-                              else im)
-        return vol.to(device=self.device, dtype=torch.float32)
-
     def detect(self, im, units=(1.0, 1.0, 1.0)) -> Keypoints:
         """Detect keypoints in a (nz, ny, nx) volume
-        (SIFT3D_detect_keypoints, sift.c:1609-1641)."""
-        with record_function("sift3d.pyramid"):
-            vol = self._volume(im)
-            nz, ny, nx = vol.shape
-            plan = pyr_mod.plan_pyramid((nx, ny, nz), tuple(units),
-                                        self.params)
-            gpyr = pyr_mod.build_gpyr(pyr_mod.im_scale(vol), plan)
-            dog = pyr_mod.build_dog(gpyr, plan)
-        with record_function("sift3d.extrema"):
-            ext = detect_mod.detect_extrema_levels(dog, plan, self.params)
-        with record_function("sift3d.orientation"):
-            kp = detect_mod.orient_levels(gpyr, ext, plan, self.params)
-        self._gpyr, self._plan, self._kp = gpyr, plan, kp
-        self.kp_overflow = any(total > count for _, count, total in ext.values())
+        (SIFT3D_detect_keypoints, sift.c:1609-1641): a batch of one."""
+        vol = im if torch.is_tensor(im) else np.asarray(im)
+        nz, ny, nx = vol.shape
+        plan = pyr_mod.plan_pyramid((nx, ny, nz), tuple(units), self.params)
+        gpyr, kp, _, overflow = detect_mod.detect(vol[None], plan,
+                                                  self.params, self.device)
+        self._gpyr = {k: v[0] for k, v in gpyr.items()}
+        self._plan, self._kp = plan, kp
+        self.kp_overflow = bool(overflow[0])
         return kp
 
     def extract(self, kp: Keypoints | None = None) -> Descriptors:

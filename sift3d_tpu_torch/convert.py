@@ -8,6 +8,10 @@ the port's matcher:
 
     params_from_dict(SIFT3DParams, dataclasses.asdict(jax_params))
     keypoints_from_numpy(**{f: np.asarray(getattr(kp, f)) for f in FIELDS})
+
+A batched set of the JAX package (a leading B axis on every field, a (B,)
+count) carries across the same way and becomes a batched set of the port;
+``volume`` takes one volume's rows out of a batched set of the port.
 """
 
 from __future__ import annotations
@@ -54,13 +58,20 @@ def _tensor(a, dtype, device):
     return torch.as_tensor(np.array(a), device=device).to(dtype)
 
 
+def _count(count, device):
+    """An int for one set, a (B,) tensor for a batched set."""
+    c = np.asarray(count)
+    return int(c) if c.ndim == 0 else torch.as_tensor(c.astype(np.int64),
+                                                      device=device)
+
+
 def keypoints_from_numpy(x, y, z, o, s, sd, R, count, device="cpu") -> Keypoints:
     """Keypoints from the JAX ``Keypoints`` fields as numpy arrays."""
     def t(a, dtype):
         return _tensor(a, dtype, device)
     return Keypoints(x=t(x, F64), y=t(y, F64), z=t(z, F64),
                      o=t(o, torch.int32), s=t(s, torch.int32), sd=t(sd, F64),
-                     R=t(R, torch.float32), count=int(count))
+                     R=t(R, torch.float32), count=_count(count, device))
 
 
 def descriptors_from_numpy(xyz, sd, vec, count, device="cpu") -> Descriptors:
@@ -68,4 +79,13 @@ def descriptors_from_numpy(xyz, sd, vec, count, device="cpu") -> Descriptors:
     def t(a, dtype):
         return _tensor(a, dtype, device)
     return Descriptors(xyz=t(xyz, F64), sd=t(sd, F64),
-                       vec=t(vec, torch.float32), count=int(count))
+                       vec=t(vec, torch.float32), count=_count(count, device))
+
+
+def volume(batch, b: int):
+    """Volume ``b`` of a batched Keypoints or Descriptors set, as the set
+    of one volume holding its ``count[b]`` rows."""
+    n = int(batch.count[b])
+    return type(batch)(**{f.name: getattr(batch, f.name)[b, :n]
+                          for f in dataclasses.fields(batch)
+                          if f.name != "count"}, count=n)

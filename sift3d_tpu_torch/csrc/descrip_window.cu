@@ -17,11 +17,14 @@
 //     dropped if the sum is <= 0 or |g|^2 < BARY_EPS;
 //   - trilinear hat weights over the 4^3 spatial grid; |g| * bary * hat goes
 //     into bin el = ((hz*4 + hy)*4 + hx)*12 + vertex.
-// Rows at or past `count` are written as zeros.
+// Rows at or past `count` are written as zeros. Rows may come from
+// different volumes of a batch: row k reads volume vol[k] of a
+// (B, nz, ny, nx) level (the TPU version's custom_vmap flattens the (B, K)
+// rows of a batch into one grid in the same way).
 //
 // Design: one thread block per keypoint; threads stride over the window's
-// voxels, reading the level directly at the row's window start (no stacked
-// per-keypoint window copy in device memory); the 768-float histogram lives
+// voxels, reading the level directly at the row's volume and window start
+// (no stacked per-keypoint window copy in device memory); the 768-float histogram lives
 // in shared memory, updated with shared atomicAdd (at most 24 per voxel),
 // and is written once, coalesced, at the end. Everything is fp32.
 //
@@ -62,8 +65,8 @@ __device__ __forceinline__ void hat(float vb, int* lo, float* w0, float* w1) {
 }
 
 __global__ void __launch_bounds__(kThreads) descrip_window_kernel(
-    const float* __restrict__ level, int ny, int nx,
-    const int* __restrict__ starts, const float* __restrict__ centers,
+    const float* __restrict__ level, int nz, int ny, int nx,
+    const int* __restrict__ vol, const int* __restrict__ starts, const float* __restrict__ centers,
     const float* __restrict__ rot, int count, int cz, int cy, int cx,
     Params p, const float* __restrict__ tables,
     const int* __restrict__ face_idx, float* __restrict__ out) {
@@ -96,6 +99,7 @@ __global__ void __launch_bounds__(kThreads) descrip_window_kernel(
   const float r0 = r[0], r1 = r[1], r2 = r[2], r3 = r[3], r4 = r[4],
               r5 = r[5], r6 = r[6], r7 = r[7], r8 = r[8];
   const size_t lplane = static_cast<size_t>(ny) * nx;
+  const float* lv = level + static_cast<size_t>(vol[k]) * nz * lplane;
   const int wplane = cy * cx;
   const int nvox = cz * wplane;
 
@@ -129,9 +133,9 @@ __global__ void __launch_bounds__(kThreads) descrip_window_kernel(
 
     const float w = expf(-0.5f * sq / p.sig2);
     const size_t c = (static_cast<size_t>(z) * ny + y) * nx + x;
-    const float gx = 0.5f * (level[c + 1] - level[c - 1]) * p.inv_ux * w;
-    const float gy = 0.5f * (level[c + nx] - level[c - nx]) * p.inv_uy * w;
-    const float gz = 0.5f * (level[c + lplane] - level[c - lplane]) * p.inv_uz * w;
+    const float gx = 0.5f * (lv[c + 1] - lv[c - 1]) * p.inv_ux * w;
+    const float gy = 0.5f * (lv[c + nx] - lv[c - nx]) * p.inv_uy * w;
+    const float gz = 0.5f * (lv[c + lplane] - lv[c - lplane]) * p.inv_uz * w;
     const float grx = r0 * gx + r3 * gy + r6 * gz;
     const float gry = r1 * gx + r4 * gy + r7 * gz;
     const float grz = r2 * gx + r5 * gy + r8 * gz;
@@ -192,14 +196,16 @@ __global__ void __launch_bounds__(kThreads) descrip_window_kernel(
 
 }  // namespace
 
-// Raw (unnormalized) descriptors for `num_rows` keypoints of one level.
-// level (nz, ny, nx) f32; starts (num_rows, 3) i32 core starts (z, y, x);
+// Raw (unnormalized) descriptors for `num_rows` keypoints of one level
+// bucket. level (B, nz, ny, nx) f32; vol (num_rows,) i32 volume of each
+// row; starts (num_rows, 3) i32 core starts (z, y, x);
 // centers (num_rows, 3) f32 (z, y, x); rot (num_rows, 9) f32 row-major R;
 // tables: 20x3 outward normals then 20x9 inverse vertex matrices (f32);
 // face_idx (20, 3) i32 histogram vertex of each face corner;
 // out (num_rows, 768) f32. Returns cudaGetLastError() after the launch.
 extern "C" int sift3d_descrip_window(
-    const float* level, int ny, int nx, const int* starts,
+    const float* level, int nz, int ny, int nx, const int* vol,
+    const int* starts,
     const float* centers, const float* rot, int num_rows, int count, int cz,
     int cy, int cx, float ux, float uy, float uz, float inv_ux, float inv_uy,
     float inv_uz, float rad2, float sig2, float half_width, float bin_fctr,
@@ -210,7 +216,7 @@ extern "C" int sift3d_descrip_window(
                  half_width, bin_fctr, bary_eps};
   descrip_window_kernel<<<num_rows, kThreads, 0,
                           static_cast<cudaStream_t>(stream)>>>(
-      level, ny, nx, starts, centers, rot, count, cz, cy, cx, p, tables,
+      level, nz, ny, nx, vol, starts, centers, rot, count, cz, cy, cx, p, tables,
       face_idx, out);
   return static_cast<int>(cudaGetLastError());
 }

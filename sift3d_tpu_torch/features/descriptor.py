@@ -15,7 +15,8 @@ caller _SIFT3D_extract_descriptors (sift.c:2207-2243), as
   1909-1918); coordinates written back at base-octave scale (sift.c:1920).
 
 Keypoints are bucketed by pyramid level: every keypoint of a level shares
-its window geometry.
+its window geometry, and one kernel launch covers a bucket, across all the
+volumes of a batch when the rows carry their volume index.
 """
 
 from __future__ import annotations
@@ -30,7 +31,7 @@ from ..config import DESC_NUMEL, DESC_RAD_FCTR, DESC_SIG_FCTR, TRUNC_THRESH
 from ..dtypes import F64
 from ..ops.cuda_window import descrip_window
 from .detect import kp_levels
-from .keypoints import Keypoints
+from .keypoints import Keypoints, valid_rows
 from .windows import window_extent
 
 _DBL_EPSILON = 2.220446049250313e-16
@@ -40,7 +41,8 @@ _DBL_EPSILON = 2.220446049250313e-16
 class Descriptors:
     """Descriptor set (reference SIFT3D_Descriptor, imtypes.h:291-296).
     Coordinates are in base-octave (image) space; rows >= count are
-    padding."""
+    padding. A set of a batch of volumes has a leading B axis on every
+    field and a (B,) count tensor."""
     xyz: torch.Tensor   # (K, 3) f64
     sd: torch.Tensor    # (K,) f64
     vec: torch.Tensor   # (K, 768) f32
@@ -48,10 +50,10 @@ class Descriptors:
 
     @property
     def capacity(self) -> int:
-        return self.vec.shape[0]
+        return self.vec.shape[-2]
 
     def valid_mask(self) -> torch.Tensor:
-        return torch.arange(self.capacity, device=self.vec.device) < self.count
+        return valid_rows(self.capacity, self.count, self.vec.device)
 
 
 def postprocess(raw: torch.Tensor) -> torch.Tensor:
@@ -81,37 +83,55 @@ def level_geometry(sd: float, units, shape):
 
 def extract_level(level: torch.Tensor, centers_zyx: torch.Tensor,
                   R: torch.Tensor, sd: float, units,
-                  count: int | None = None) -> torch.Tensor:
+                  count: int | None = None,
+                  vol: torch.Tensor | None = None) -> torch.Tensor:
     """Descriptors (K, 768) for all keypoints of one level; centers_zyx
-    float (K, 3). Rows >= count (default K) are postprocessed zeros."""
-    sigma, rad, radii, cores = level_geometry(sd, units, level.shape)
+    float (K, 3). Rows >= count (default K) are postprocessed zeros.
+    ``level`` is (nz, ny, nx), or (B, nz, ny, nx) with the volume index
+    ``vol`` (K,) of each row."""
+    sigma, rad, radii, cores = level_geometry(sd, units, level.shape[-3:])
     if count is None:
         count = centers_zyx.shape[0]
     raw = descrip_window(level, centers_zyx, R, count, radii, cores, units,
-                         sigma, rad)
+                         sigma, rad, vol=vol)
     return postprocess(raw)
 
 
 def level_buckets(kp: Keypoints, plan):
     """Yield ((o, s), rows) for every non-empty level bucket of ``kp``'s
-    valid rows, rows in keypoint order."""
-    valid = kp.valid_mask()
-    for o, s in kp_levels(plan):
-        rows = torch.nonzero(valid & (kp.o == o) & (kp.s == s)).reshape(-1)
-        if rows.numel():
-            yield (o, s), rows
+    valid rows, rows in keypoint order (one host sync for all buckets)."""
+    levels = kp_levels(plan)
+    per_octave = len(levels) // plan.num_octaves
+    n = kp.count
+    o = kp.o[:n].long()
+    s = kp.s[:n].long() - (plan.first_level + 1)
+    on_level = (o >= 0) & (o < plan.num_octaves) & (s >= 0) & \
+        (s < per_octave)
+    # Index into ``levels``; rows on no keypoint level go to a last bucket.
+    lid = torch.where(on_level, o * per_octave + s, len(levels))
+    order = torch.argsort(lid, stable=True)
+    sizes = torch.bincount(lid, minlength=len(levels) + 1).tolist()
+    start = 0
+    for lv, size in zip(levels, sizes):
+        if size:
+            yield lv, order[start:start + size]
+        start += size
 
 
-def extract_descriptors(gpyr: dict, kp: Keypoints, plan) -> Descriptors:
+def extract_descriptors(gpyr: dict, kp: Keypoints, plan,
+                        vol: torch.Tensor | None = None) -> Descriptors:
     """Descriptors from the detection pyramid (SIFT3D_extract_descriptors,
-    sift.c:2025-2046). Keypoint rows keep their order."""
+    sift.c:2025-2046). Keypoint rows keep their order. With ``vol``, the
+    (n,) volume index of each row, the ``gpyr`` levels are (B, nz, ny, nx)
+    and each level bucket of all the volumes is one kernel launch."""
     vec = torch.zeros((kp.capacity, DESC_NUMEL), dtype=torch.float32,
                       device=kp.x.device)
     for (o, s), rows in level_buckets(kp, plan):
         centers = torch.stack([kp.z[rows], kp.y[rows], kp.x[rows]], -1).float()
         vec[rows] = extract_level(gpyr[(o, s)], centers, kp.R[rows],
                                   plan.gpyr_level(o, s).scale,
-                                  plan.octave_units(o))
+                                  plan.octave_units(o),
+                                  vol=None if vol is None else vol[rows])
     factor = torch.exp2(kp.o.to(F64))
     xyz = torch.stack([kp.x * factor, kp.y * factor, kp.z * factor], -1)
     return Descriptors(xyz=xyz, sd=kp.sd, vec=vec, count=kp.count)

@@ -5,30 +5,23 @@ scale input to [-1, 1], build pyramids, detect extrema on DoG levels
 s in [first_level+1, last_dog_level-1], assign orientations from the
 corresponding gpyr levels, and compact rejected keypoints out while
 preserving the reference's (octave, level, z, y, x) emission order.
+
+Detection runs on a (B, nz, ny, nx) batch of volumes of one shape (one
+volume is a batch of one): each level is one set of launches for the
+whole batch, and its keypoint rows carry their volume index.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
+from torch.profiler import record_function
 
+from .. import pyramid as pyr_mod
 from ..config import SIFT3DParams
 from ..dtypes import F64
 from . import extrema, orientation
-from .keypoints import Keypoints, concatenate
-
-
-def _level_keypoints(zyx, R, ori_valid, o, s, sd) -> Keypoints:
-    """Compact one level's keypoints after orientation rejection."""
-    zyx = zyx[ori_valid]
-    R = R[ori_valid]
-    n = int(zyx.shape[0])
-    dev = zyx.device
-    return Keypoints(
-        x=zyx[:, 2].to(F64), y=zyx[:, 1].to(F64), z=zyx[:, 0].to(F64),
-        o=torch.full((n,), o, dtype=torch.int32, device=dev),
-        s=torch.full((n,), s, dtype=torch.int32, device=dev),
-        sd=torch.full((n,), sd, dtype=F64, device=dev),
-        R=R.float(), count=n)
+from .keypoints import Keypoints
 
 
 def kp_levels(plan):
@@ -52,7 +45,8 @@ def level_cap(plan, o: int, params: SIFT3DParams) -> int:
 
 
 def detect_extrema_levels(dog: dict, plan, params: SIFT3DParams) -> dict:
-    """Stage A: DoG extrema per level -> {(o, s): (zyx, count, total)}.
+    """Stage A: DoG extrema per level -> {(o, s): (zyx, count, total)}
+    (``extrema.level_extrema``'s forms for one volume or a batch).
 
     ``total > count`` means rows were truncated at the level's capacity
     (the reference's keypoint slab is unbounded, so the loss is reported
@@ -64,14 +58,61 @@ def detect_extrema_levels(dog: dict, plan, params: SIFT3DParams) -> dict:
 
 
 def orient_levels(gpyr: dict, extrema_levels: dict, plan,
-                  params: SIFT3DParams) -> Keypoints:
-    """Stage B: orientation + compaction of every level's extrema."""
-    buckets = []
-    for o, s in kp_levels(plan):
-        zyx = extrema_levels[(o, s)][0]
-        geom = plan.gpyr_level(o, s)
-        R, valid = orientation.assign_orientations_level(
-            gpyr[(o, s)], zyx, geom.scale, plan.octave_units(o),
-            params.corner_thresh)
-        buckets.append(_level_keypoints(zyx, R, valid, o, s, geom.scale))
-    return concatenate(buckets)
+                  params: SIFT3DParams):
+    """Stage B: orientation + compaction of every level's extrema, over a
+    batch: ``gpyr`` levels (B, nz, ny, nx) and ``extrema_levels`` in the
+    batch form ((n, 4) rows (volume, z, y, x)).
+
+    One orientation launch per level covers every volume. Returns (kp,
+    vol): the kept keypoints of all volumes in (level, volume, scan)
+    order, with count == capacity, and the (n,) volume index of each row.
+    """
+    levels = kp_levels(plan)
+    rows, A6, vd, lvl = [], [], [], []
+    for i, (o, s) in enumerate(levels):
+        r = extrema_levels[(o, s)][0]
+        a6, v = orientation.level_terms(
+            gpyr[(o, s)], r[:, 1:], plan.gpyr_level(o, s).scale,
+            plan.octave_units(o), vol=r[:, 0])
+        rows.append(r)
+        A6.append(a6)
+        vd.append(v)
+        lvl.append(torch.full((r.shape[0],), i, device=r.device))
+    R, valid = orientation.orientations_from_tensor(
+        torch.cat(A6), torch.cat(vd), params.corner_thresh)
+    keep = torch.nonzero(valid).reshape(-1)      # the stage's host sync
+    rows, R, lvl = torch.cat(rows)[keep], R[keep], torch.cat(lvl)[keep]
+    dev = rows.device
+    os_ = torch.as_tensor(np.array([o for o, _ in levels], np.int32),
+                          device=dev)
+    ss = torch.as_tensor(np.array([s for _, s in levels], np.int32),
+                         device=dev)
+    sds = torch.as_tensor([plan.gpyr_level(o, s).scale for o, s in levels],
+                          dtype=F64, device=dev)
+    kp = Keypoints(x=rows[:, 3].to(F64), y=rows[:, 2].to(F64),
+                   z=rows[:, 1].to(F64), o=os_[lvl], s=ss[lvl], sd=sds[lvl],
+                   R=R.float(), count=int(keep.shape[0]))
+    return kp, rows[:, 0].long()
+
+
+def detect(vols, plan, params: SIFT3DParams, device):
+    """Detect keypoints in a (B, nz, ny, nx) batch of raw volumes.
+
+    Returns (gpyr, kp, vol, kp_overflow): the Gaussian pyramid
+    {(o, s): (B, nz, ny, nx)}, ``orient_levels``' keypoints and volume
+    index, and the (B,) flag of volumes whose extrema exceeded a level's
+    capacity. Each stage runs inside a ``sift3d.<stage>`` profiler span.
+    """
+    with record_function("sift3d.pyramid"):
+        vols = vols if torch.is_tensor(vols) else torch.as_tensor(
+            np.asarray(vols))
+        vols = vols.to(device=device, dtype=torch.float32)
+        gpyr = pyr_mod.build_gpyr(pyr_mod.im_scale(vols), plan)
+        dog = pyr_mod.build_dog(gpyr, plan)
+    with record_function("sift3d.extrema"):
+        ext = detect_extrema_levels(dog, plan, params)
+    with record_function("sift3d.orientation"):
+        kp, vol = orient_levels(gpyr, ext, plan, params)
+    overflow = torch.stack([total > count
+                            for _, count, total in ext.values()]).any(0)
+    return gpyr, kp, vol, overflow

@@ -2,9 +2,11 @@
 
 The reference grows Keypoint slabs dynamically (imtypes.h:264-270,
 immacros.h:199-222). The JAX package pads to static capacities; the port
-runs eagerly, so its own sets hold exactly ``count`` rows, and ``head`` /
-``concatenate`` keep the JAX package's contract (rows >= count are
-padding) for sets carried across with ``convert.keypoints_from_numpy``.
+runs eagerly, so the sets of one volume hold exactly ``count`` rows, and
+``head`` keeps the JAX package's contract (rows >= count are padding) for
+sets carried across with ``convert.keypoints_from_numpy``. A set of a
+batch of volumes has a leading B axis on every field and a (B,) count
+tensor; volume b's rows past ``count[b]`` are padding.
 """
 
 from __future__ import annotations
@@ -13,8 +15,6 @@ import dataclasses
 
 import numpy as np
 import torch
-
-from ..dtypes import F64
 
 
 @dataclasses.dataclass
@@ -29,14 +29,14 @@ class Keypoints:
     s: torch.Tensor       # (K,) i32 level index
     sd: torch.Tensor      # (K,) f64 absolute scale
     R: torch.Tensor       # (K, 3, 3) f32 rotation (rows x cols as reference)
-    count: int            # number of valid rows
+    count: int            # number of valid rows ((B,) tensor for a batch)
 
     @property
     def capacity(self) -> int:
-        return self.x.shape[0]
+        return self.x.shape[-1]
 
     def valid_mask(self) -> torch.Tensor:
-        return torch.arange(self.capacity, device=self.x.device) < self.count
+        return valid_rows(self.capacity, self.count, self.x.device)
 
     def to_numpy(self) -> np.ndarray:
         """Rows [x y z o sd R00..R22] (14 cols), trimmed to count."""
@@ -48,22 +48,17 @@ class Keypoints:
         return out
 
 
-_FIELDS = ("x", "y", "z", "o", "s", "sd", "R")
+FIELDS = ("x", "y", "z", "o", "s", "sd", "R")
+
+
+def valid_rows(capacity: int, count, device) -> torch.Tensor:
+    """(capacity,) or, for a (B,) count, (B, capacity) mask of rows below
+    count."""
+    count = torch.as_tensor(count, device=device)
+    return torch.arange(capacity, device=device) < count[..., None]
 
 
 def head(kp: Keypoints, n: int) -> Keypoints:
     """First ``n`` rows of a compacted keypoint set."""
-    return Keypoints(**{f: getattr(kp, f)[:n] for f in _FIELDS},
+    return Keypoints(**{f: getattr(kp, f)[:n] for f in FIELDS},
                      count=min(kp.count, n))
-
-
-def concatenate(parts: list[Keypoints]) -> Keypoints:
-    """Concatenate keypoint sets, keeping the valid rows of each in order.
-    The result holds exactly the valid rows (capacity == count)."""
-    cols = {f: torch.cat([getattr(p, f)[:p.count] for p in parts])
-            for f in _FIELDS}
-    cols["x"], cols["y"], cols["z"], cols["sd"] = (
-        cols[f].to(F64) for f in ("x", "y", "z", "sd"))
-    cols["o"], cols["s"] = cols["o"].int(), cols["s"].int()
-    cols["R"] = cols["R"].float()
-    return Keypoints(**cols, count=sum(p.count for p in parts))

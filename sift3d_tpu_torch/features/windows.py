@@ -42,13 +42,40 @@ def window_starts(shape, base_zyx: torch.Tensor, radii, cores) -> torch.Tensor:
     return torch.stack(starts, dim=-1)
 
 
-def gather_windows(level: torch.Tensor, starts: torch.Tensor, cores):
+def batch_view(level: torch.Tensor, n_rows: int, vol=None):
+    """A (B, nz, ny, nx) view of ``level`` and the (n_rows,) long volume
+    index of each row. A (nz, ny, nx) level is a batch of one, whose rows
+    all read volume 0."""
+    if level.ndim == 3:
+        level = level[None]
+    if vol is None:
+        return level, torch.zeros(n_rows, dtype=torch.long,
+                                  device=level.device)
+    return level, vol.to(device=level.device, dtype=torch.long)
+
+
+def gather_windows(level: torch.Tensor, vol: torch.Tensor,
+                   starts: torch.Tensor, cores):
     """(K, cz+2, cy+2, cx+2) core windows plus a 1-voxel gradient halo,
-    gathered from ``level`` at core starts (K, 3)."""
+    gathered at core starts (K, 3) from volume ``vol[k]`` of a
+    (B, nz, ny, nx) level."""
     cz, cy, cx = cores
     dev = level.device
     iz = starts[:, 0, None] - 1 + torch.arange(cz + 2, device=dev)
     iy = starts[:, 1, None] - 1 + torch.arange(cy + 2, device=dev)
     ix = starts[:, 2, None] - 1 + torch.arange(cx + 2, device=dev)
-    return level[iz[:, :, None, None], iy[:, None, :, None],
-                 ix[:, None, None, :]]
+    return level[vol[:, None, None, None], iz[:, :, None, None],
+                 iy[:, None, :, None], ix[:, None, None, :]]
+
+
+def window_union(shape, vol: torch.Tensor, starts: torch.Tensor,
+                 cores) -> int:
+    """Voxels of a (B, nz, ny, nx) level that the union of the rows'
+    windows (core plus gradient halo) covers, counted per volume on the
+    host: windows of nearby keypoints overlap, and a kernel reads each
+    voxel of the union at least once."""
+    covered = np.zeros(tuple(shape), bool)
+    cz, cy, cx = cores
+    for b, (z, y, x) in zip(vol.tolist(), starts.tolist()):
+        covered[b, z - 1:z + cz + 1, y - 1:y + cy + 1, x - 1:x + cx + 1] = True
+    return int(covered.sum())

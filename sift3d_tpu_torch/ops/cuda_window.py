@@ -11,10 +11,13 @@ zero.
 - ``descrip_window`` is the entry point: it launches the kernel for a
   CUDA tensor and runs ``descrip_window_plain`` for a CPU tensor. There is
   no fallback from the kernel to the plain version.
-- The kernel reads every window straight from the level at its per-row
-  start; no stacked (K, wz, wy, wx) copy of the windows is built (that
-  pre-gather is what ran the TPU version out of memory at 256^3 batch
-  capacities).
+- A row may come from any volume of a batch: with ``vol`` given, the level
+  is (B, nz, ny, nx) and row k reads volume ``vol[k]`` (the counterpart of
+  the TPU version's ``custom_vmap``, which flattens (B, K) rows into one
+  grid). The kernel reads every window straight from the level at its
+  per-row volume and start; no stacked (B*K, wz, wy, wx) copy of the
+  windows is built (that pre-gather is what ran the TPU version out of
+  memory at the config-4 batch capacities).
 - On the H100 the kernel is bound by arithmetic and shared-memory atomics,
   not by device memory (see ``descrip_work`` for the counts).
 """
@@ -29,7 +32,8 @@ import torch
 
 from .. import _build
 from ..config import (BARY_EPS, DESC_NUM_TOTAL_HIST, DESC_NUMEL, NHIST_PER_DIM)
-from ..features.windows import gather_windows, window_gradients, window_starts
+from ..features.windows import (batch_view, gather_windows, window_gradients,
+                                window_starts, window_union)
 from .geometry import face_solve_tables, face_tables, icos_hist_bin, vertex_weights
 
 # Window voxels per chunk of the plain version (bounds its temporaries:
@@ -55,12 +59,12 @@ def geometry_constants(units, sigma: float, rad: float) -> dict:
                 bary_eps=float(np.float32(BARY_EPS)))
 
 
-def _window_frame(level, centers, R, radii, cores, g):
-    """Window starts and the per-voxel displacement frame of a chunk:
-    returns (starts, sq (C, cz, cy, cx), (vbx, vby, vbz), in_sphere)."""
-    dev = level.device
-    starts = window_starts(level.shape, torch.floor(centers).long(), radii,
-                           cores)
+def _window_frame(shape, centers, R, radii, cores, g):
+    """Window starts and the per-voxel displacement frame of a chunk of
+    rows of a (nz, ny, nx) level: returns (starts, sq (C, cz, cy, cx),
+    (vbx, vby, vbz), in_sphere)."""
+    dev = centers.device
+    starts = window_starts(shape, torch.floor(centers).long(), radii, cores)
     cz, cy, cx = cores
     zg = (starts[:, 0, None] + torch.arange(cz, device=dev)).float()
     yg = (starts[:, 1, None] + torch.arange(cy, device=dev)).float()
@@ -79,17 +83,17 @@ def _window_frame(level, centers, R, radii, cores, g):
     return starts, sq, vb, in_sphere
 
 
-def _plain_chunk(level, centers, R, radii, cores, units, g):
+def _plain_chunk(level, vol, centers, R, radii, cores, units, g):
     """Raw histograms (C, 768) of a chunk of keypoints."""
     C = centers.shape[0]
     V = cores[0] * cores[1] * cores[2]
     starts, sq, (vbx, vby, vbz), in_sphere = _window_frame(
-        level, centers, R, radii, cores, g)
+        level.shape[1:], centers, R, radii, cores, g)
     nh = float(NHIST_PER_DIM)
     inside = ((vbx >= 0) & (vby >= 0) & (vbz >= 0) &
               (vbx < nh) & (vby < nh) & (vbz < nh))
 
-    win = gather_windows(level, starts, cores)
+    win = gather_windows(level, vol, starts, cores)
     gx, gy, gz = window_gradients(win, units)
     weight = torch.exp(-0.5 * sq / g["sig2"])
     gx = gx * weight; gy = gy * weight; gz = gz * weight
@@ -120,10 +124,12 @@ def _plain_chunk(level, centers, R, radii, cores, units, g):
 
 
 def descrip_window_plain(level, centers, R, count: int, radii, cores,
-                         units, sigma: float, rad: float) -> torch.Tensor:
+                         units, sigma: float, rad: float,
+                         vol=None) -> torch.Tensor:
     """The plain PyTorch version: raw (K, 768) histograms, chunked over
     keypoints; rows >= count are zero."""
     K = centers.shape[0]
+    level, vol = batch_view(level, K, vol)
     out = torch.zeros((K, DESC_NUMEL), dtype=torch.float32,
                       device=level.device)
     n = min(int(count), K)
@@ -133,8 +139,8 @@ def descrip_window_plain(level, centers, R, count: int, radii, cores,
     R = R.float()
     for k0 in range(0, n, chunk):
         k1 = min(n, k0 + chunk)
-        out[k0:k1] = _plain_chunk(level, centers[k0:k1], R[k0:k1], radii,
-                                  cores, units, g)
+        out[k0:k1] = _plain_chunk(level, vol[k0:k1], centers[k0:k1],
+                                  R[k0:k1], radii, cores, units, g)
     return out
 
 
@@ -157,45 +163,50 @@ def _kernel_fn():
     fn = _build.load("descrip_window").sift3d_descrip_window
     if fn.argtypes is None:
         P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        fn.argtypes = [P, I, I, P, P, P, I, I, I, I, I,
+        fn.argtypes = [P, I, I, I, P, P, P, P, I, I, I, I, I,
                        F, F, F, F, F, F, F, F, F, F, F, P, P, P, P]
         fn.restype = ctypes.c_int
     return fn
 
 
 def descrip_window(level, centers, R, count: int, radii, cores, units,
-                   sigma: float, rad: float) -> torch.Tensor:
+                   sigma: float, rad: float, vol=None) -> torch.Tensor:
     """Raw (K, 768) descriptor histograms of one level bucket.
 
     Args:
-      level: (nz, ny, nx) f32 Gaussian pyramid level.
+      level: (nz, ny, nx) f32 Gaussian pyramid level, or (B, nz, ny, nx)
+        with ``vol``.
       centers: (K, 3) keypoint centers (z, y, x), level voxel coords.
       R: (K, 3, 3) rotations.
       count: number of real rows; rows >= count come back as zeros.
       radii, cores: (z, y, x) window half-extents and clamped core extents.
       units: (ux, uy, uz); sigma, rad: descriptor Gaussian width and
         window radius (mm).
+      vol: optional (K,) volume index of each row.
     """
     if level.device.type == "cpu":
         return descrip_window_plain(level, centers, R, count, radii, cores,
-                                    units, sigma, rad)
+                                    units, sigma, rad, vol)
     if level.device.type != "cuda":
         raise ValueError(f"descrip_window: unsupported device {level.device}")
-    if level.dtype != torch.float32 or level.ndim != 3:
-        raise ValueError("descrip_window: level must be a 3-D float32 tensor")
+    if level.dtype != torch.float32 or level.ndim not in (3, 4):
+        raise ValueError("descrip_window: level must be a 3-D or 4-D float32 "
+                         "tensor")
     K = centers.shape[0]
+    level, vol = batch_view(level, K, vol)
     level = level.contiguous()
+    vol = vol.to(torch.int32).contiguous()
     centers = centers.to(device=level.device, dtype=torch.float32).contiguous()
     rot = R.to(device=level.device, dtype=torch.float32).reshape(K, 9).contiguous()
-    starts = window_starts(level.shape, torch.floor(centers).long(), radii,
-                           cores).to(torch.int32).contiguous()
+    starts = window_starts(level.shape[1:], torch.floor(centers).long(),
+                           radii, cores).to(torch.int32).contiguous()
     out = torch.empty((K, DESC_NUMEL), dtype=torch.float32, device=level.device)
     if K == 0:
         return out
     tables, face_idx = _tables(level.device)
     g = geometry_constants(units, sigma, rad)
     err = _kernel_fn()(
-        level.data_ptr(), level.shape[1], level.shape[2], starts.data_ptr(),
+        level.data_ptr(), *level.shape[1:], vol.data_ptr(), starts.data_ptr(),
         centers.data_ptr(), rot.data_ptr(), K, min(int(count), K), *cores,
         g["ux"], g["uy"], g["uz"], g["inv_ux"], g["inv_uy"], g["inv_uz"],
         g["rad2"], g["sig2"], g["half_width"], g["bin_fctr"], g["bary_eps"],
@@ -218,19 +229,17 @@ OPS_BOX_VOXEL = 11
 
 
 def descrip_work(level, centers, R, count: int, radii, cores, units,
-                 sigma: float, rad: float) -> tuple[int, int]:
+                 sigma: float, rad: float, vol=None) -> tuple[int, int]:
     """(bytes, fp32 operations) that one ``descrip_window`` call needs on
     these inputs: the union of the rows' windows (core + halo) read once
-    (windows of nearby keypoints overlap), each row's inputs read and its
-    histogram written once; the operations counted from the voxels of each
-    box that pass the sphere and bin-cube tests."""
+    per volume (windows of nearby keypoints overlap), each row's inputs
+    read and its histogram written once; the operations counted from the
+    voxels of each box that pass the sphere and bin-cube tests."""
+    level, vol = batch_view(level, centers.shape[0], vol)
     n = min(int(count), centers.shape[0])
-    starts = window_starts(level.shape, torch.floor(centers[:n]).long(),
-                           radii, cores).tolist()
-    covered = torch.zeros(level.shape, dtype=torch.bool, device=level.device)
-    for z, y, x in starts:
-        covered[z - 1:z + cores[0] + 1, y - 1:y + cores[1] + 1,
-                x - 1:x + cores[2] + 1] = True
+    starts = window_starts(level.shape[1:], torch.floor(centers[:n]).long(),
+                           radii, cores)
+    covered = window_union(level.shape, vol[:n], starts, cores)
     g = geometry_constants(units, sigma, rad)
     nh = float(NHIST_PER_DIM)
     box = cores[0] * cores[1] * cores[2]
@@ -238,12 +247,12 @@ def descrip_work(level, centers, R, count: int, radii, cores, units,
     chunk = max(1, _CHUNK_VOXELS // box)
     for k0 in range(0, n, chunk):
         _, _, (vbx, vby, vbz), in_sphere = _window_frame(
-            level, centers[k0:k0 + chunk].float(), R[k0:k0 + chunk].float(),
+            level.shape[1:], centers[k0:k0 + chunk].float(), R[k0:k0 + chunk].float(),
             radii, cores, g)
         inside = ((vbx >= 0) & (vby >= 0) & (vbz >= 0) &
                   (vbx < nh) & (vby < nh) & (vbz < nh))
         active += int((in_sphere & inside).sum())
-    nbytes = (4 * int(covered.sum()) + n * 4 * (3 + 3 + 9) +
+    nbytes = (4 * covered + n * 4 * (1 + 3 + 3 + 9) +
               centers.shape[0] * DESC_NUMEL * 4)
     ops = active * OPS_ACTIVE_VOXEL + (n * box - active) * OPS_BOX_VOXEL
     return nbytes, ops

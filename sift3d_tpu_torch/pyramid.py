@@ -15,7 +15,11 @@ as the JAX package's ``sift3d_tpu/pyramid.py`` does:
   max(s_end - 2, first_level) (sift.c:1029-1042, imutil.c:1742-1768).
 
 The plan (shapes, scales, filter taps) is numpy on the host; the levels
-are torch tensors on the input's device.
+are torch tensors on the input's device. A level is (nz, ny, nx) for one
+volume or (B, nz, ny, nx) for a batch of volumes of one shape (the
+non-sharded branch of ``build_gpyr_batched``,
+``sift3d_tpu/parallel/pipeline.py``): every blur is one fp32 matmul per
+axis over the whole batch.
 """
 
 from __future__ import annotations
@@ -115,13 +119,15 @@ def plan_pyramid(dims: tuple[int, int, int],
 
 
 def im_scale(vol: torch.Tensor) -> torch.Tensor:
-    """Scale to [-1, 1] by the max absolute value (imutil.c:1959-1991)."""
-    m = torch.max(torch.abs(vol))
+    """Scale to [-1, 1] by the max absolute value (imutil.c:1959-1991),
+    each volume of a batch by its own."""
+    m = torch.amax(torch.abs(vol), dim=(-3, -2, -1), keepdim=True)
     return torch.where(m == 0, vol, vol / m)
 
 
 def build_gpyr(vol: torch.Tensor, plan: PyramidPlan) -> dict:
-    """Build the Gaussian pyramid from a scaled (nz, ny, nx) volume.
+    """Build the Gaussian pyramid from a scaled (nz, ny, nx) volume or
+    (B, nz, ny, nx) batch.
 
     Returns {(o, s): tensor}.
     """
@@ -140,7 +146,7 @@ def build_gpyr(vol: torch.Tensor, plan: PyramidPlan) -> dict:
             src = levels[(o - 1, plan.downsample_level)]
             nxd, nyd, nzd = plan.octave_dims(o)
             levels[(o, first)] = \
-                src[::2, ::2, ::2][:nzd, :nyd, :nxd].contiguous()
+                src[..., ::2, ::2, ::2][..., :nzd, :nyd, :nxd].contiguous()
         for s in range(first + 1, last + 1):
             taps = plan.octave_filter_taps(s)
             levels[(o, s)] = conv.conv_sep(levels[(o, s - 1)], taps, 1.0,

@@ -5,7 +5,8 @@ Reproduces register_SIFT3D (reference reg/reg.c:239-317), as
 matched coordinates from voxels to mm (im2mm, reg.c:43-68), fit an affine
 with RANSAC in mm space, and convert the transform back to voxel space
 (mm2im, reg.c:79-117). The affine A (3x4) maps *ref* voxel coordinates to
-*src* voxel coordinates, like the reference's output.
+*src* voxel coordinates, like the reference's output. ``register_pairs``
+registers a batch of pairs at once; ``register_pair`` is a batch of one.
 """
 
 from __future__ import annotations
@@ -25,6 +26,8 @@ from .ransac import find_tform_ransac
 
 @dataclasses.dataclass
 class RegistrationResult:
+    """For one pair; ``register_pairs`` gives every field a leading B axis
+    and (B,) tensors for the counts and flags."""
     A: torch.Tensor            # (3, 4) f64 affine in voxel space, ref -> src
     matches: torch.Tensor      # (N_src,) i32 match indices into ref (-1 = none)
     match_src: torch.Tensor    # (N_src, 3) f64 padded matched src voxel coords
@@ -62,25 +65,35 @@ def use_streamed(n1: int, n2: int, match_params: MatchParams,
         n1 * n2 >= match_params.streamed_threshold)
 
 
-def register_pair(desc_src: Descriptors, desc_ref: Descriptors,
-                  src_units, ref_units,
-                  match_params: MatchParams = MatchParams(),
-                  ransac_params: RansacParams = RansacParams(),
-                  ransac_idx: torch.Tensor | None = None,
-                  kp_overflow: bool = False) -> RegistrationResult:
-    """Register a (src, ref) descriptor pair.
+def register_pairs(desc_src: Descriptors, desc_ref: Descriptors,
+                   src_units, ref_units,
+                   match_params: MatchParams = MatchParams(),
+                   ransac_params: RansacParams = RansacParams(),
+                   ransac_idx: torch.Tensor | None = None,
+                   kp_overflow: torch.Tensor | None = None
+                   ) -> RegistrationResult:
+    """Register B (src, ref) descriptor pairs at once (``jax.vmap`` of
+    ``register_pair`` in the JAX package's ``batch_register_pairs``).
 
-    ``desc_src`` plays d1 (queries) and ``desc_ref`` d2 in matching
+    The sets carry a leading batch axis: (B, K, 768) vectors and (B,)
+    counts. ``desc_src`` plays d1 (queries) and ``desc_ref`` d2 in matching
     (reg.c:271), and the fit maps ref coordinates onto src coordinates.
-    ``ransac_idx`` optionally injects the RANSAC hypothesis draws.
+    ``ransac_idx`` (B, H, 4) optionally injects the RANSAC hypothesis
+    draws; ``kp_overflow`` (B,) is passed through. Returns a
+    RegistrationResult with a leading batch axis; nothing waits on the
+    host.
     """
     n1, n2 = desc_src.capacity, desc_ref.capacity
-    match = nn_match_streamed if use_streamed(
-        n1, n2, match_params, desc_src.vec.device) else nn_match
+    v1, v2 = desc_src.valid_mask(), desc_ref.valid_mask()
+    thresh = match_params.nn_thresh
     with record_function("sift3d.match"):
-        matches = match(desc_src.vec, desc_ref.vec, match_params.nn_thresh,
-                        valid1=desc_src.valid_mask(),
-                        valid2=desc_ref.valid_mask())
+        if use_streamed(n1, n2, match_params, desc_src.vec.device):
+            matches = torch.stack([
+                nn_match_streamed(a, b, thresh, valid1=m1, valid2=m2)
+                for a, b, m1, m2 in zip(desc_src.vec, desc_ref.vec, v1, v2)])
+        else:
+            matches = nn_match(desc_src.vec, desc_ref.vec, thresh,
+                               valid1=v1, valid2=v2)
         src_xyz, ref_xyz, n_match = matches_to_coords(
             desc_src.xyz, desc_ref.xyz, matches)
     with record_function("sift3d.ransac"):
@@ -88,7 +101,35 @@ def register_pair(desc_src: Descriptors, desc_ref: Descriptors,
                                 im2mm(ref_xyz, ref_units), n_match,
                                 ransac_params, idx=ransac_idx)
         A = mm2im(res.A, src_units, ref_units)
+    if kp_overflow is None:
+        kp_overflow = torch.zeros_like(res.ok)
     return RegistrationResult(
-        A=A, matches=matches,
-        match_src=src_xyz, match_ref=ref_xyz, num_matches=n_match,
-        num_inliers=res.num_inliers, ok=res.ok, kp_overflow=kp_overflow)
+        A=A, matches=matches, match_src=src_xyz, match_ref=ref_xyz,
+        num_matches=n_match, num_inliers=res.num_inliers, ok=res.ok,
+        kp_overflow=kp_overflow)
+
+
+def _batch_of_one(d: Descriptors) -> Descriptors:
+    return Descriptors(xyz=d.xyz[None], sd=d.sd[None], vec=d.vec[None],
+                       count=torch.tensor([d.count], device=d.vec.device))
+
+
+def register_pair(desc_src: Descriptors, desc_ref: Descriptors,
+                  src_units, ref_units,
+                  match_params: MatchParams = MatchParams(),
+                  ransac_params: RansacParams = RansacParams(),
+                  ransac_idx: torch.Tensor | None = None,
+                  kp_overflow: bool = False) -> RegistrationResult:
+    """Register one (src, ref) descriptor pair: ``register_pairs`` on a
+    batch of one. ``ransac_idx`` (H, 4) optionally injects the RANSAC
+    hypothesis draws.
+    """
+    res = register_pairs(_batch_of_one(desc_src), _batch_of_one(desc_ref),
+                         src_units, ref_units, match_params, ransac_params,
+                         None if ransac_idx is None else ransac_idx[None])
+    n_match, n_in, ok = torch.stack(
+        [res.num_matches[0], res.num_inliers[0], res.ok[0].long()]).tolist()
+    return RegistrationResult(
+        A=res.A[0], matches=res.matches[0], match_src=res.match_src[0],
+        match_ref=res.match_ref[0], num_matches=n_match, num_inliers=n_in,
+        ok=bool(ok), kp_overflow=kp_overflow)

@@ -127,7 +127,8 @@ def test_extract_descriptors_whole_volume(jax_side):
 
 def test_descrip_work_counts_window_union():
     """The byte count reads the union of the rows' windows once: a repeated
-    row adds its inputs and its output, not its window again."""
+    row adds its inputs (volume index, start, centre, R) and its output,
+    not its window again."""
     from sift3d_tpu_torch.ops.cuda_window import descrip_work
     level = torch.zeros((20, 20, 20))
     centers = torch.full((2, 3), 10.0)
@@ -135,7 +136,7 @@ def test_descrip_work_counts_window_union():
     args = ((3, 3, 3), (8, 8, 8), UNITS, 1.0, 4.0)
     b1, o1 = descrip_work(level, centers[:1], R[:1], 1, *args)
     b2, o2 = descrip_work(level, centers, R, 2, *args)
-    window, row = 4 * 10 ** 3, 4 * (3 + 3 + 9) + 4 * 768
+    window, row = 4 * 10 ** 3, 4 * (1 + 3 + 3 + 9) + 4 * 768
     assert (b1, b2) == (window + row, window + 2 * row)
     assert o2 == 2 * o1 > 0
 

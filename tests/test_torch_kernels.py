@@ -4,7 +4,8 @@ These need the card (the kernels are built with nvcc for sm_90a and have
 no CPU mode) and skip elsewhere; on a machine with the card run
 ``python -m pytest --noconftest tests/test_torch_kernels.py -q`` (this
 file needs no JAX, which ``tests/conftest.py`` imports). ``chip_smoke.py``
-repeats both checks at the shapes of a 256^3 registration.
+repeats the checks at the shapes of a 256^3 registration and of a
+config-4 batch.
 """
 
 import math
@@ -15,8 +16,9 @@ import torch
 
 from sift3d_tpu_torch.config import DESC_RAD_FCTR, DESC_SIG_FCTR
 from sift3d_tpu_torch.features.match import nn_match
+from sift3d_tpu_torch.features.orientation import level_geometry
 from sift3d_tpu_torch.features.windows import window_extent
-from sift3d_tpu_torch.ops import cuda_match, cuda_window
+from sift3d_tpu_torch.ops import cuda_match, cuda_orient, cuda_window
 
 torch.set_num_threads(1)
 
@@ -43,12 +45,7 @@ def _level(rng, shape):
     return vol.astype(np.float32)
 
 
-@pytest.mark.parametrize("units", [(1.0, 1.0, 1.0), (1.0, 1.3, 0.8)])
-def test_descrip_window_kernel_matches_plain(cuda, units):
-    rng = np.random.default_rng(0)
-    shape = (40, 44, 36)
-    level = torch.as_tensor(_level(rng, shape))
-    K, count = 24, 20
+def _descrip_args(rng, shape, K, units):
     centers = torch.as_tensor(np.stack(
         [rng.uniform(2, n - 3, K) for n in shape], -1).astype(np.float32))
     R = torch.as_tensor(np.array([np.linalg.qr(a)[0] for a in
@@ -59,17 +56,79 @@ def test_descrip_window_kernel_matches_plain(cuda, units):
     rad = float(np.float32(DESC_RAD_FCTR) * np.float32(sigma))
     radii = tuple(int(math.ceil(rad / u)) for u in units[::-1])
     cores = tuple(window_extent(r, n, False) for r, n in zip(radii, shape))
-    args = (count, radii, cores, units, sigma, rad)
-    want = cuda_window.descrip_window(level, centers, R, *args)
+    return centers, R, (radii, cores, units, sigma, rad)
+
+
+@pytest.mark.parametrize("units", [(1.0, 1.0, 1.0), (1.0, 1.3, 0.8)])
+def test_descrip_window_kernel_matches_plain(cuda, units):
+    rng = np.random.default_rng(0)
+    shape = (40, 44, 36)
+    level = torch.as_tensor(_level(rng, shape))
+    K, count = 24, 20
+    centers, R, geom = _descrip_args(rng, shape, K, units)
+    want = cuda_window.descrip_window(level, centers, R, count, *geom)
     before = cuda_window.descrip_window.launches
     got = cuda_window.descrip_window(level.to(cuda), centers.to(cuda),
-                                     R.to(cuda), *args)
+                                     R.to(cuda), count, *geom)
     torch.cuda.synchronize()
     assert cuda_window.descrip_window.launches == before + 1
     got = got.cpu()
     assert torch.all(got[count:] == 0)
     scale = want.abs().max()
     assert (got - want).abs().max() <= 1e-4 * scale
+
+
+def test_descrip_window_kernel_batched(cuda):
+    """Rows of three volumes in one launch equal the per-volume plain
+    calls."""
+    rng = np.random.default_rng(3)
+    shape, units = (36, 40, 32), (1.0, 1.3, 0.8)
+    levels = torch.as_tensor(np.stack([_level(rng, shape) for _ in range(3)]))
+    K = 18
+    centers, R, geom = _descrip_args(rng, shape, K, units)
+    vol = torch.as_tensor(rng.integers(0, 3, K))
+    want = torch.zeros((K, 768))
+    for b in range(3):
+        m = vol == b
+        want[m] = cuda_window.descrip_window_plain(
+            levels[b], centers[m], R[m], int(m.sum()), *geom)
+    before = cuda_window.descrip_window.launches
+    got = cuda_window.descrip_window(levels.to(cuda), centers.to(cuda),
+                                     R.to(cuda), K, *geom, vol=vol.to(cuda))
+    torch.cuda.synchronize()
+    assert cuda_window.descrip_window.launches == before + 1
+    assert (got.cpu() - want).abs().max() <= 1e-4 * want.abs().max()
+
+
+@pytest.mark.parametrize("units", [(1.0, 1.0, 1.0), (1.0, 1.3, 0.8)])
+def test_orient_window_kernel_matches_plain(cuda, units):
+    """Kernel 3 on rows of three volumes, windows clamped at both edges,
+    and rows past count."""
+    rng = np.random.default_rng(4)
+    shape = (24, 28, 20)
+    levels = torch.as_tensor(np.stack([_level(rng, shape) for _ in range(3)]))
+    K, count = 16, 13
+    zyx = np.stack([rng.integers(1, n - 1, K) for n in shape], -1)
+    zyx[0] = (1, 1, 1)
+    zyx[1] = tuple(n - 2 for n in shape)
+    zyx = torch.as_tensor(zyx)
+    vol = torch.as_tensor(rng.integers(0, 3, K))
+    sigma, rad, radii, cores = level_geometry(1.6, units, shape)
+    args = (count, radii, cores, units, sigma, rad)
+    A_want, vd_want = cuda_orient.orient_terms_plain(levels, zyx, *args,
+                                                     vol=vol)
+    before = cuda_orient.orient_terms.launches
+    A_got, vd_got = cuda_orient.orient_terms(levels.to(cuda), zyx.to(cuda),
+                                             *args, vol=vol.to(cuda))
+    torch.cuda.synchronize()
+    assert cuda_orient.orient_terms.launches == before + 1
+    assert A_got.dtype == torch.float64 and vd_got.dtype == torch.float32
+    A_got, vd_got = A_got.cpu(), vd_got.cpu()
+    assert torch.all(A_got[count:] == 0) and torch.all(vd_got[count:] == 0)
+    scale = torch.cat([A_want.abs(), vd_want.abs().double()], 1).amax(1,
+                                                                      True)
+    assert ((A_got - A_want).abs() <= 1e-5 * scale).all()
+    assert ((vd_got - vd_want).abs().double() <= 1e-5 * scale).all()
 
 
 def test_match_kernel_matches_plain_and_dense(cuda):

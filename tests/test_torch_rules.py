@@ -16,7 +16,8 @@ from sift3d_tpu_torch import RegSift3D, Sift3D
 from sift3d_tpu_torch.config import MatchParams, RansacParams, SIFT3DParams
 from sift3d_tpu_torch.convert import params_from_dict
 from sift3d_tpu_torch.dtypes import resolve_device
-from sift3d_tpu_torch.ops import cuda_match, cuda_window
+from sift3d_tpu_torch.ops import cuda_match, cuda_orient, cuda_window
+from sift3d_tpu_torch.parallel import pipeline as tpipe
 
 torch.set_num_threads(1)
 
@@ -27,7 +28,9 @@ PORT = ROOT / "sift3d_tpu_torch"
 def test_import_pulls_in_no_jax():
     code = ("import sys, sift3d_tpu_torch, sift3d_tpu_torch.api, "
             "sift3d_tpu_torch.convert, sift3d_tpu_torch.ops.cuda_match, "
-            "sift3d_tpu_torch.ops.cuda_window\n"
+            "sift3d_tpu_torch.ops.cuda_window, "
+            "sift3d_tpu_torch.ops.cuda_orient, "
+            "sift3d_tpu_torch.parallel.pipeline\n"
             "bad = [m for m in sys.modules if m == 'jax' or "
             "m.startswith(('jax.', 'jaxlib', 'sift3d_tpu.')) or "
             "m == 'sift3d_tpu']\n"
@@ -64,6 +67,10 @@ def test_entry_points_refuse_cpu_fallback():
         RegSift3D()
     with pytest.raises(RuntimeError, match="CUDA"):
         resolve_device("cuda")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        tpipe.batch_register_pairs(np.zeros((1, 16, 16, 16)),
+                                   np.zeros((1, 16, 16, 16)), None,
+                                   SIFT3DParams())
     assert resolve_device("cpu") == torch.device("cpu")
 
 
@@ -77,7 +84,8 @@ def test_entry_points_pin_full_fp32():
 
 def test_wrappers_run_plain_on_cpu_without_counting():
     before = (cuda_window.descrip_window.launches,
-              cuda_match.reduce_one_way.launches)
+              cuda_match.reduce_one_way.launches,
+              cuda_orient.orient_terms.launches)
     level = torch.zeros((12, 12, 12))
     out = cuda_window.descrip_window(
         level, torch.full((2, 3), 6.0), torch.eye(3).expand(2, 3, 3), 1,
@@ -86,8 +94,14 @@ def test_wrappers_run_plain_on_cpu_without_counting():
     q = torch.ones((3, 768))
     best, _, idx = cuda_match.reduce_one_way(q, q, q.sum(1), q.sum(1))
     assert idx.tolist() == [0, 0, 0] and (best == 0).all()
+    A6, vd = cuda_orient.orient_terms(
+        torch.zeros((2, 12, 12, 12)), torch.full((3, 3), 6), 2, (3, 3, 3),
+        (7, 7, 7), (1.0, 1.0, 1.0), 1.0, 3.0, vol=torch.tensor([0, 1, 1]))
+    assert A6.dtype == torch.float64 and A6.shape == (3, 6)
+    assert vd.shape == (3, 3) and not A6.any() and not vd.any()
     assert (cuda_window.descrip_window.launches,
-            cuda_match.reduce_one_way.launches) == before
+            cuda_match.reduce_one_way.launches,
+            cuda_orient.orient_terms.launches) == before
 
 
 @pytest.mark.parametrize("cls,kw", [

@@ -18,10 +18,11 @@ KP_FIELDS = ("x", "y", "z", "o", "s", "sd", "R")
 
 
 def jax_keypoints_to_port(kp, device="cpu"):
-    """A port Keypoints set holding the JAX Keypoints' rows."""
+    """A port Keypoints set holding the JAX Keypoints' rows (batched for a
+    batched JAX set)."""
     return convert.keypoints_from_numpy(
         **{f: np.asarray(getattr(kp, f)) for f in KP_FIELDS},
-        count=int(kp.count), device=device)
+        count=np.asarray(kp.count), device=device)
 
 
 def jax_descriptors_to_port(desc, pad=None, device="cpu"):
