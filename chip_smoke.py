@@ -7,7 +7,8 @@ sm_90a, one process per source, into ``build/kernels/``), then:
 
 1. holds the descriptor-window kernel (1) against its plain PyTorch
    version on the real pyramid levels of a 256^3 volume (max abs deviation
-   <= 2e-3 on the postprocessed descriptors, rows past ``count`` zero);
+   <= 2e-3 on the postprocessed descriptors, rows past ``count`` zero), in
+   both accumulation variants (``cuda_window.VARIANT`` and the other);
 2. holds the orientation-window kernel (3) against its plain version on
    every level bucket of the same volume's extrema (first 64 rows, and 5
    rows past ``count`` that must come back zero): the float64 tensor sums
@@ -41,7 +42,11 @@ sm_90a, one process per source, into ``build/kernels/``), then:
    batched call (min of 5, pairs/s), and profiles one 256^3 registration
    and one batched call: each stage's ``sift3d.<stage>`` span on the host
    and the device, the device's busy time and idle share
-   (``scripts/profile_register.profile_call``).
+   (``scripts/profile_register.profile_call``). Kernel 1 is timed in both
+   accumulation variants, with its blocks per launch (``slab_plan``) and
+   the share of box voxels that pass its geometry tests; kernel 2 at the
+   main path's shape and at 2500 x 2300, with its tile side and target
+   ranges (``match_plan``).
 
 Prints the card's name and power limit, a ``{"kernels": [...]}`` line and,
 last, ``{"ok": true, "device": {...}}``. Exits non-zero, with no result,
@@ -215,10 +220,14 @@ def check_orient(buckets, corner_thresh, label) -> dict:
 
 
 def check_descrip_window(buckets, label) -> float:
+    """Kernel 1 against its plain version on each bucket (5 extra rows past
+    count must be zero); the accumulation variant that the wrapper does
+    not use is held to the same tolerance."""
     from sift3d_tpu_torch.features.descriptor import postprocess
-    from sift3d_tpu_torch.ops.cuda_window import (descrip_window,
+    from sift3d_tpu_torch.ops.cuda_window import (VARIANT, _launch,
+                                                  descrip_window,
                                                   descrip_window_plain)
-    worst = 0.0
+    worst = worst_other = 0.0
     assert buckets, f"no keypoints ({label})"
     for lv, args in buckets:
         level, centers, R, n = args[:4]
@@ -228,17 +237,24 @@ def check_descrip_window(buckets, label) -> float:
         R_p = torch.cat([R, R[:1].expand(pad, 3, 3)])
         vol_p = None if vol is None else torch.cat([vol, vol[:1].expand(pad)])
         got = descrip_window(level, centers_p, R_p, n, *geom, vol_p)
+        other = _launch(level, centers_p, R_p, n, *geom, vol_p,
+                        variant=1 - VARIANT)
         want = descrip_window_plain(level, centers, R, n, *geom, vol)
         torch.cuda.synchronize()
         assert torch.all(got[n:] == 0), f"rows past count not zero at {lv}"
-        dev = (postprocess(got[:n]) - postprocess(want)).abs().max().item()
+        assert torch.all(other[n:] == 0), f"rows past count not zero at {lv}"
+        ref = postprocess(want)
+        dev = (postprocess(got[:n]) - ref).abs().max().item()
+        dev_other = (postprocess(other[:n]) - ref).abs().max().item()
         log(f"kernel 1 ({label}) level {lv}: {n} rows, cores {args[5]}, "
-            f"max |dev| {dev:.3e}")
+            f"max |dev| {dev:.3e} (variant {1 - VARIANT}: {dev_other:.3e})")
         worst = max(worst, dev)
+        worst_other = max(worst_other, dev_other)
     print(f"descrip_window vs plain ({label}): max abs deviation "
-          f"{worst:.3e} over {len(buckets)} level buckets "
-          f"(tolerance {DESC_TOL})")
+          f"{worst:.3e} over {len(buckets)} level buckets, the other "
+          f"accumulation variant {worst_other:.3e} (tolerance {DESC_TOL})")
     assert worst <= DESC_TOL, worst
+    assert worst_other <= DESC_TOL, worst_other
     return worst
 
 
@@ -542,27 +558,44 @@ def main() -> int:
     from sift3d_tpu_torch.ops.cuda_orient import (orient_terms,
                                                   orient_terms_plain,
                                                   orient_work)
-    from sift3d_tpu_torch.ops.cuda_window import (descrip_window,
+    from sift3d_tpu_torch.ops.cuda_window import (_launch, descrip_active,
+                                                  descrip_window,
                                                   descrip_window_plain,
-                                                  descrip_work)
-    nbytes, ops = work_sum(descrip_work, [a for _, a in k1_args])
-    b1, by1 = bound_ms(nbytes, ops)
-    k1_ms = cuda_ms(lambda: [descrip_window(*a) for _, a in k1_args], 5)
-    k1_plain = cuda_ms(lambda: [descrip_window_plain(*a) for _, a in k1_args],
-                       1)
+                                                  descrip_work, slab_plan)
+
+    def k1_times(args, reps):
+        nb, ops = work_sum(descrip_work, [a for _, a in args])
+        active, box = work_sum(descrip_active, [a for _, a in args])
+        b, by = bound_ms(nb, ops)
+        out = dict(launches=len(args), rows=sum(a[3] for _, a in args),
+                   blocks_per_launch=[a[3] * slab_plan(a[3], a[5][0])[1]
+                                      for _, a in args],
+                   active_voxels=active, box_voxels=box,
+                   active_share=active / box,
+                   ms=cuda_ms(lambda: [descrip_window(*a) for _, a in args],
+                              reps),
+                   plain_ms=cuda_ms(lambda: [descrip_window_plain(*a)
+                                             for _, a in args], 1),
+                   bound_ms=b, bound_by=by, bytes=nb, ops=ops)
+        for v in (0, 1):
+            out[f"variant_{v}_ms"] = cuda_ms(
+                lambda v=v: [_launch(*a, variant=v) for _, a in args], reps)
+        return out
+    k1_256 = k1_times(k1_args, 5)
+    k1_batch = k1_times(k1_batch_args, 3)
     detail["descrip_window"] = dict(
         buckets=[dict(level=lv, rows=a[3], cores=a[5]) for lv, a in k1_args],
-        bytes=nbytes, ops=ops)
-    nb1, op1 = work_sum(descrip_work, [a for _, a in k1_batch_args])
-    b1_batch, by1_batch = bound_ms(nb1, op1)
-    k1_batch_ms = cuda_ms(lambda: [descrip_window(*a)
-                                   for _, a in k1_batch_args], 3)
-    k1_batch_plain = cuda_ms(lambda: [descrip_window_plain(*a)
-                                      for _, a in k1_batch_args], 1)
-    print(f"descrip_window per config-4 batch ({len(k1_batch_args)} "
-          f"launches, {sum(a[3] for _, a in k1_batch_args)} rows): "
-          f"{k1_batch_ms:.3f} ms, plain {k1_batch_plain:.1f} ms, bound "
-          f"{b1_batch:.4f} ms ({by1_batch}) [{card}]")
+        reg_256=k1_256, batch=k1_batch)
+    for label, t in (("256^3 registration", k1_256),
+                     ("config-4 batch", k1_batch)):
+        blk = t["blocks_per_launch"]
+        print(f"descrip_window per {label} ({t['launches']} launches, "
+              f"{t['rows']} rows, {min(blk)}-{max(blk)} blocks a launch, "
+              f"active voxels {t['active_share']:.4f} of the boxes): "
+              f"{t['ms']:.4f} ms (variant 0 {t['variant_0_ms']:.4f}, "
+              f"variant 1 {t['variant_1_ms']:.4f}), plain "
+              f"{t['plain_ms']:.1f} ms, bound {t['bound_ms']:.4f} ms "
+              f"({t['bound_by']}) [{card}]")
 
     def k3_times(args, reps):
         nb, o32, o64 = work_sum(orient_work, [a for _, a in args])
@@ -592,7 +625,9 @@ def main() -> int:
         nq, nt = args[0].shape[0], args[1].shape[0]
         b, by = bound_ms((nq + nt) * 768 * 4 + (nq + nt) * 4 + nq * 12,
                          2.0 * nq * nt * 768)
-        return dict(nq=nq, nt=nt,
+        side, _, ranges = cuda_match.match_plan(nq, nt)
+        return dict(nq=nq, nt=nt, tile=side, ranges=ranges,
+                    blocks=-(-nq // side) * ranges,
                     ms=cuda_ms(lambda: reduce_one_way(*args), reps),
                     plain_ms=cuda_ms(lambda: reduce_one_way_plain(*args),
                                      reps),
@@ -605,10 +640,13 @@ def main() -> int:
     k2_big = k2_times((big[0], big[1], (big[0] ** 2).sum(1),
                        (big[1] ** 2).sum(1)), 5)
     detail["match_stream"] = dict(main=k2_main, multi_tile=k2_big)
-    print(f"match_stream at 2500x2300 (one direction): "
-          f"{k2_big['ms']:.4f} ms, plain {k2_big['plain_ms']:.4f} ms, "
-          f"matmul+topk {k2_big['library_ms']:.4f} ms, bound "
-          f"{k2_big['bound_ms']:.4f} ms [{card}]")
+    for label, t in ((f"the main path's {k2_main['nq']}x{k2_main['nt']}",
+                      k2_main), ("2500x2300", k2_big)):
+        print(f"match_stream at {label} (one direction, {t['tile']}-wide "
+              f"tiles, {t['ranges']} target ranges, {t['blocks']} blocks): "
+              f"{t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, "
+              f"matmul+topk {t['library_ms']:.4f} ms, bound "
+              f"{t['bound_ms']:.5f} ms ({t['bound_by']}) [{card}]")
 
     def stage_line(prof):
         return ", ".join(f"{k} {v['host_ms']:.2f} / {v['device_busy_ms']:.2f}"
@@ -662,12 +700,21 @@ def main() -> int:
              source="sift3d_tpu_torch/csrc/descrip_window.cu",
              replaces="sift3d_tpu/ops/pallas_window.py:49",
              launches=batch_counts[0], max_abs_err=max(worst1, worst1_batch),
-             ms=k1_ms, plain_ms=k1_plain, bound_ms=b1, bound_by=by1,
+             ms=k1_256["ms"], plain_ms=k1_256["plain_ms"],
+             bound_ms=k1_256["bound_ms"], bound_by=k1_256["bound_by"],
              library_ms=None, ms_for=per_reg,
              launches_by_path=by_path["descrip_window"],
-             batch_ms=k1_batch_ms, batch_plain_ms=k1_batch_plain,
-             batch_bound_ms=b1_batch,
-             batch_bound_by=by1_batch),
+             batch_ms=k1_batch["ms"], batch_plain_ms=k1_batch["plain_ms"],
+             batch_bound_ms=k1_batch["bound_ms"],
+             batch_bound_by=k1_batch["bound_by"],
+             variant=cuda_window.VARIANT,
+             variant_ms={f"{v}": [k1_256[f"variant_{v}_ms"],
+                                  k1_batch[f"variant_{v}_ms"]]
+                         for v in (0, 1)},
+             blocks_per_launch_256=k1_256["blocks_per_launch"],
+             blocks_per_launch_batch=k1_batch["blocks_per_launch"],
+             active_share_256=k1_256["active_share"],
+             active_share_batch=k1_batch["active_share"]),
         dict(name="match_stream", route="cuda",
              source="sift3d_tpu_torch/csrc/match_stream.cu",
              replaces="sift3d_tpu/ops/pallas_match.py:63",
@@ -677,7 +724,15 @@ def main() -> int:
              bound_ms=k2_main["bound_ms"], bound_by=k2_main["bound_by"],
              library_ms=k2_main["library_ms"],
              ms_for="one launch (one direction) at the 256^3 pair's shapes",
-             launches_by_path=by_path["match_stream"]),
+             launches_by_path=by_path["match_stream"],
+             ranges=k2_main["ranges"], tile=k2_main["tile"],
+             multi_tile_shape=[k2_big["nq"], k2_big["nt"]],
+             multi_tile_ms=k2_big["ms"],
+             multi_tile_plain_ms=k2_big["plain_ms"],
+             multi_tile_library_ms=k2_big["library_ms"],
+             multi_tile_bound_ms=k2_big["bound_ms"],
+             multi_tile_ranges=k2_big["ranges"],
+             multi_tile_tile=k2_big["tile"]),
         dict(name="orient_window", route="cuda",
              source="sift3d_tpu_torch/csrc/orient_window.cu",
              replaces="sift3d_tpu/ops/pallas_orient.py:38",

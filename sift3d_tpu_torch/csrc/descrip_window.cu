@@ -20,29 +20,77 @@
 // Rows at or past `count` are written as zeros. Rows may come from
 // different volumes of a batch: row k reads volume vol[k] of a
 // (B, nz, ny, nx) level (the TPU version's custom_vmap flattens the (B, K)
-// rows of a batch into one grid in the same way).
+// rows of a batch into one grid in the same way). The kernel computes each
+// row's clamped core start itself and reads the window in place (no
+// stacked per-keypoint window copy in device memory).
 //
-// Design: one thread block per keypoint; threads stride over the window's
-// voxels, reading the level directly at the row's volume and window start
-// (no stacked per-keypoint window copy in device memory); the 768-float histogram lives
-// in shared memory, updated with shared atomicAdd (at most 24 per voxel),
-// and is written once, coalesced, at the end. Everything is fp32.
+// What bounded the first design: one block per keypoint row, so a level
+// bucket of 1-25 rows (a 256^3 registration) kept at most 25 of the 132
+// SMs busy; each voxel did 24 float atomicAdds on one shared 768-float
+// histogram, which sm_90 runs as compare-and-swap loops (ATOMS.CAST.SPIN)
+// that serialize when the lanes of a warp hit the same bin, as the 32
+// consecutive voxels of one window line mostly did; and every thread
+// walked the whole box with a division and a modulo per voxel, idling on
+// the voxels outside the sphere and the rotated bin cube (70% of the box).
 //
-// What bounds it on the H100: arithmetic and shared atomics, not device
-// memory. A 74^3 core window is 1.6 MB of level reads (mostly from L1/L2:
-// neighbouring voxels and keypoints overlap) against ~260 fp32 operations
-// and 24 shared atomics per voxel that lies in the sphere. The per-voxel
-// geometry tests run first and skip all further work for the ~half of the
-// box that lies outside the sphere or the rotated bin cube.
+// Design now:
+//   - The grid is rows x z-slabs. The wrapper picks the slab depth from the
+//     row count and the core depth so that the grid holds at least 2 x 132
+//     blocks where rows x planes allow it; a bucket that fills the card
+//     (the batch) takes one slab per row. With several slabs each block
+//     writes a partial histogram to scratch (blocks x 768 floats) and a
+//     second pass sums a row's slabs in slab order.
+//   - A block takes its slab's (z, y) lines 128 at a time: each thread cuts
+//     one line to its x-span inside the sphere and the rotated bin cube
+//     (one voxel of margin; the exact unfused fp32 sphere and bin-cube
+//     tests still run per voxel, so the masks agree with the plain version
+//     voxel for voxel), and a block prefix sum of the span lengths lays
+//     the candidate voxels out densely. Lane l of a warp takes candidates
+//     q apart, so lanes work on different lines and mostly different bins,
+//     and no lane idles on a voxel outside the cut.
+//   - Each bin update is a native shared-memory integer atomicAdd
+//     (ATOMS.ADD) of the contribution in fixed point, into a private
+//     histogram per warp (variant 0) or, for comparison, one histogram per
+//     block after the lanes that hit the same bin have combined their
+//     values (variant 1, cooperative-groups labeled partition and reduce).
+//     The scale is a power of two from max|level| (a device scalar, no
+//     host sync) such that a pass of 2048 candidates cannot overflow; after
+//     each pass the integer sums fold into a float histogram. Each
+//     contribution is rounded to a step of 2^-21 of the level's gradient
+//     bound, which is coarser than fp32 where a window's gradients lie far
+//     below the level's largest, and still far inside the 2e-3 descriptor
+//     tolerance; the integer sums are exact and order-free.
+//   - The face scan takes its 20 normals from the kernel's parameters and
+//     finds the first argmax as a tree over index-ordered halves (the
+//     strict > scan's result: ties go to the lowest face).
+//   - Everything else stays fp32, in the first design's order.
+//
+// What bounds it now: fp32 issue in the per-voxel arithmetic (about 260
+// operations per voxel in the sphere and bin cube), with the line scan
+// and the shared atomics behind it; device memory is not the limit (the
+// windows are read mostly from L1 and L2). At the 256^3 registration's
+// small buckets the host's launch overhead is of the same order.
 
+#include <cooperative_groups.h>
+#include <cooperative_groups/reduce.h>
 #include <cuda_runtime.h>
 #include <math.h>
+
+namespace cg = cooperative_groups;
 
 namespace {
 
 constexpr int kFaces = 20;
 constexpr int kHist = 768;
-constexpr int kThreads = 256;
+constexpr int kThreads = 128;
+constexpr int kWarps = kThreads / 32;
+constexpr int kPass = 2048;   // candidate voxels between fixed-point folds
+constexpr float kRound = 12582912.0f;     // 1.5 * 2^23
+constexpr float kBinEps = 1e-3f;          // bin-cube margin of a line's span
+constexpr float kFlat = 1e-6f;            // |d k / d x| below which a line
+                                          // runs parallel to a cube face
+constexpr int kWarpHist = 0;      // variant 0: a private histogram per warp
+constexpr int kWarpCombine = 1;   // variant 1: combine equal bins, then add
 
 struct Params {
   float ux, uy, uz;              // voxel spacing (mm)
@@ -64,159 +112,402 @@ __device__ __forceinline__ void hat(float vb, int* lo, float* w0, float* w1) {
   *w1 = fr;
 }
 
-__global__ void __launch_bounds__(kThreads) descrip_window_kernel(
-    const float* __restrict__ level, int nz, int ny, int nx,
-    const int* __restrict__ vol, const int* __restrict__ starts, const float* __restrict__ centers,
-    const float* __restrict__ rot, int count, int cz, int cy, int cx,
-    Params p, const float* __restrict__ tables,
-    const int* __restrict__ face_idx, float* __restrict__ out) {
-  __shared__ float hist[kHist];
-  __shared__ float s_norm[kFaces * 3];
-  __shared__ float s_vinv[kFaces * 9];
-  __shared__ int s_vert[kFaces * 3];
-
-  const int k = blockIdx.x;
-  const int tid = threadIdx.x;
-  float* o = out + static_cast<size_t>(k) * kHist;
-  if (k >= count) {
-    for (int i = tid; i < kHist; i += blockDim.x) o[i] = 0.0f;
-    return;
+template <int kMode>
+__device__ __forceinline__ void hist_add(int* h, int bin, int v) {
+  if constexpr (kMode == kWarpHist) {
+    atomicAdd(h + bin, v);
+  } else {
+    const cg::coalesced_group here = cg::coalesced_threads();
+    const cg::coalesced_group same = cg::labeled_partition(here, bin);
+    const int s = cg::reduce(same, v, cg::plus<int>());
+    if (same.thread_rank() == 0) atomicAdd(h + bin, s);
   }
-  for (int i = tid; i < kHist; i += blockDim.x) hist[i] = 0.0f;
-  for (int i = tid; i < kFaces * 3; i += blockDim.x) {
-    s_norm[i] = tables[i];
-    s_vert[i] = face_idx[i];
-  }
-  for (int i = tid; i < kFaces * 9; i += blockDim.x)
-    s_vinv[i] = tables[kFaces * 3 + i];
-  __syncthreads();
+}
 
-  const int sz = starts[3 * k], sy = starts[3 * k + 1], sx = starts[3 * k + 2];
-  const float czf = centers[3 * k], cyf = centers[3 * k + 1],
-              cxf = centers[3 * k + 2];
-  // R row-major; the kernel applies R^T: (R^T u)_i = sum_j R[j][i] u_j.
-  const float* r = rot + 9 * k;
-  const float r0 = r[0], r1 = r[1], r2 = r[2], r3 = r[3], r4 = r[4],
-              r5 = r[5], r6 = r[6], r7 = r[7], r8 = r[8];
-  const size_t lplane = static_cast<size_t>(ny) * nx;
-  const float* lv = level + static_cast<size_t>(vol[k]) * nz * lplane;
-  const int wplane = cy * cx;
-  const int nvox = cz * wplane;
+// Clamped core start of one axis: clip(floor(c) - r, 1, n - 1 - core).
+__device__ __forceinline__ int core_start(float c, int r, int n, int core) {
+  return min(max(static_cast<int>(floorf(c)) - r, 1), n - 1 - core);
+}
 
-  for (int v = tid; v < nvox; v += blockDim.x) {
-    const int iz = v / wplane;
-    const int rem = v - iz * wplane;
-    const int iy = rem / cx;
-    const int ix = rem - iy * cx;
-    const int z = sz + iz, y = sy + iy, x = sx + ix;
+// One row's keypoint frame: centre (level voxels) and R row-major; the
+// kernel applies R^T: (R^T u)_i = sum_j R[j][i] u_j.
+struct Frame {
+  float cx, cy, cz;
+  float r0, r1, r2, r3, r4, r5, r6, r7, r8;
+};
 
-    // Geometry tests in unfused IEEE fp32, the plain version's rounding,
-    // so the sphere and bin-cube masks agree voxel for voxel.
-    const float vx = __fmul_rn(__fsub_rn(static_cast<float>(x), cxf), p.ux);
-    const float vy = __fmul_rn(__fsub_rn(static_cast<float>(y), cyf), p.uy);
-    const float vz = __fmul_rn(__fsub_rn(static_cast<float>(z), czf), p.uz);
-    const float sq = __fadd_rn(__fadd_rn(__fmul_rn(vx, vx), __fmul_rn(vy, vy)),
-                               __fmul_rn(vz, vz));
-    if (!(sq <= p.rad2)) continue;
-    const float kx = __fadd_rn(__fadd_rn(__fmul_rn(r0, vx), __fmul_rn(r3, vy)),
-                               __fmul_rn(r6, vz));
-    const float ky = __fadd_rn(__fadd_rn(__fmul_rn(r1, vx), __fmul_rn(r4, vy)),
-                               __fmul_rn(r7, vz));
-    const float kz = __fadd_rn(__fadd_rn(__fmul_rn(r2, vx), __fmul_rn(r5, vy)),
-                               __fmul_rn(r8, vz));
-    const float vbx = __fmul_rn(__fadd_rn(kx, p.half_width), p.bin_fctr);
-    const float vby = __fmul_rn(__fadd_rn(ky, p.half_width), p.bin_fctr);
-    const float vbz = __fmul_rn(__fadd_rn(kz, p.half_width), p.bin_fctr);
-    if (!(vbx >= 0.0f && vby >= 0.0f && vbz >= 0.0f && vbx < 4.0f &&
-          vby < 4.0f && vbz < 4.0f))
-      continue;
+// Displacement (mm), |v|^2 and rotated bin coordinates of voxel (x, y, z)
+// in unfused IEEE fp32, the plain version's rounding, so the sphere and
+// bin-cube masks agree voxel for voxel. True when the voxel lies in the
+// sphere and the bin cube.
+__device__ __forceinline__ bool voxel_frame(const Params& p, const Frame& f,
+                                            int x, int y, int z, float* v,
+                                            float* sq, float* vb) {
+  const float vx = __fmul_rn(__fsub_rn(static_cast<float>(x), f.cx), p.ux);
+  const float vy = __fmul_rn(__fsub_rn(static_cast<float>(y), f.cy), p.uy);
+  const float vz = __fmul_rn(__fsub_rn(static_cast<float>(z), f.cz), p.uz);
+  *sq = __fadd_rn(__fadd_rn(__fmul_rn(vx, vx), __fmul_rn(vy, vy)),
+                  __fmul_rn(vz, vz));
+  if (!(*sq <= p.rad2)) return false;
+  const float kx = __fadd_rn(
+      __fadd_rn(__fmul_rn(f.r0, vx), __fmul_rn(f.r3, vy)), __fmul_rn(f.r6, vz));
+  const float ky = __fadd_rn(
+      __fadd_rn(__fmul_rn(f.r1, vx), __fmul_rn(f.r4, vy)), __fmul_rn(f.r7, vz));
+  const float kz = __fadd_rn(
+      __fadd_rn(__fmul_rn(f.r2, vx), __fmul_rn(f.r5, vy)), __fmul_rn(f.r8, vz));
+  vb[0] = __fmul_rn(__fadd_rn(kx, p.half_width), p.bin_fctr);
+  vb[1] = __fmul_rn(__fadd_rn(ky, p.half_width), p.bin_fctr);
+  vb[2] = __fmul_rn(__fadd_rn(kz, p.half_width), p.bin_fctr);
+  v[0] = vx;
+  v[1] = vy;
+  v[2] = vz;
+  return vb[0] >= 0.0f && vb[1] >= 0.0f && vb[2] >= 0.0f && vb[0] < 4.0f &&
+         vb[1] < 4.0f && vb[2] < 4.0f;
+}
 
-    const float w = expf(-0.5f * sq / p.sig2);
-    const size_t c = (static_cast<size_t>(z) * ny + y) * nx + x;
-    const float gx = 0.5f * (lv[c + 1] - lv[c - 1]) * p.inv_ux * w;
-    const float gy = 0.5f * (lv[c + nx] - lv[c - nx]) * p.inv_uy * w;
-    const float gz = 0.5f * (lv[c + lplane] - lv[c - lplane]) * p.inv_uz * w;
-    const float grx = r0 * gx + r3 * gy + r6 * gz;
-    const float gry = r1 * gx + r4 * gy + r7 * gz;
-    const float grz = r2 * gx + r5 * gy + r8 * gz;
-    const float mag2 = grx * grx + gry * gry + grz * grz;
-    if (!(mag2 >= p.bary_eps)) continue;
-
-    int face = 0;
-    float best = s_norm[0] * grx + s_norm[1] * gry + s_norm[2] * grz;
+// Conservative x-span [x_lo, x_hi] of the core line (y, z): every voxel of
+// the line that lies in the sphere and the rotated bin cube lies in it
+// (both cuts widened by one voxel; the exact tests still run per voxel).
+// vy, vz are the line's displacements (mm). Empty when x_lo > x_hi.
+__device__ __forceinline__ void line_span(const Params& p, const Frame& f,
+                                          float vy, float vz, int sx, int cx,
+                                          int* x_lo, int* x_hi) {
+  // |v|^2 = (vx^2 + vy^2) + vz^2 rounds to at least vy^2 + vz^2, so a line
+  // past the radius holds no voxel of the sphere.
+  const float yz = __fadd_rn(__fmul_rn(vy, vy), __fmul_rn(vz, vz));
+  *x_lo = sx;
+  *x_hi = yz <= p.rad2 ? sx + cx - 1 : sx - 1;
+  if (*x_lo > *x_hi) return;
+  const float half = __fmul_rn(sqrtf(__fsub_rn(p.rad2, yz)), p.inv_ux);
+  float t_lo = -half, t_hi = half;   // x - cx, in voxels
+  // Bin coordinate i along the line: (a_i + b_i t + hw) * bin_fctr with
+  // b_i = R[0][i] ux; keep it inside [-eps, 4 + eps].
+  const float rx[3] = {f.r0, f.r1, f.r2}, ry[3] = {f.r3, f.r4, f.r5},
+              rz[3] = {f.r6, f.r7, f.r8};
+  const float k_lo = -kBinEps / p.bin_fctr - p.half_width;
+  const float k_hi = (4.0f + kBinEps) / p.bin_fctr - p.half_width;
 #pragma unroll
-    for (int f = 1; f < kFaces; ++f) {
-      const float s = s_norm[3 * f] * grx + s_norm[3 * f + 1] * gry +
-                      s_norm[3 * f + 2] * grz;
-      if (s > best) {
-        best = s;
-        face = f;
+  for (int i = 0; i < 3; ++i) {
+    const float a = ry[i] * vy + rz[i] * vz;
+    const float b = rx[i] * p.ux;
+    if (fabsf(b) > kFlat) {
+      float t0 = (k_lo - a) / b, t1 = (k_hi - a) / b;
+      if (b < 0.0f) {
+        const float tmp = t0;
+        t0 = t1;
+        t1 = tmp;
       }
+      t_lo = fmaxf(t_lo, t0);
+      t_hi = fminf(t_hi, t1);
+    } else if (!(a >= k_lo && a <= k_hi)) {
+      t_hi = -2.0f * half - 4.0f;   // the line misses the bin cube
     }
-    const float* m = s_vinv + 9 * face;
-    const float b0 = m[0] * grx + m[1] * gry + m[2] * grz;
-    const float b1 = m[3] * grx + m[4] * gry + m[5] * grz;
-    const float b2 = m[6] * grx + m[7] * gry + m[8] * grz;
-    const float bsum = b0 + b1 + b2;
-    if (!(bsum > 0.0f)) continue;
-    const float mag = sqrtf(mag2);
-    const float val[3] = {b0 / bsum * mag, b1 / bsum * mag, b2 / bsum * mag};
-    const int* vert = s_vert + 3 * face;
+  }
+  *x_lo = max(sx, static_cast<int>(ceilf(f.cx + t_lo)) - 1);
+  *x_hi = min(sx + cx - 1, static_cast<int>(floorf(f.cx + t_hi)) + 1);
+}
 
-    int lz, ly, lx;
-    float wz[2], wy[2], wx[2];
-    hat(vbz, &lz, &wz[0], &wz[1]);
-    hat(vby, &ly, &wy[0], &wy[1]);
-    hat(vbx, &lx, &wx[0], &wx[1]);
+// The icosahedron's outward unit normals, passed by value (the kernel
+// reads them from its parameter space with constant indices).
+struct Normals {
+  float n[kFaces * 3];
+};
+
+// Face of the rotated gradient: the first argmax over the 20 normals of
+// the dot product, as a strict > scan in face order finds it, taken as a
+// tree over index-ordered halves (the higher-index side wins only when
+// strictly greater), so the 20 products are independent.
+__device__ __forceinline__ int best_face(const Normals& c, float gx,
+                                         float gy, float gz) {
+  float v[kFaces];
+  int id[kFaces];
 #pragma unroll
-    for (int a = 0; a < 2; ++a) {
-      const int hz = lz + a;
-      if (hz >= 4) continue;
+  for (int i = 0; i < kFaces; ++i) {
+    v[i] = c.n[3 * i] * gx + c.n[3 * i + 1] * gy + c.n[3 * i + 2] * gz;
+    id[i] = i;
+  }
 #pragma unroll
-      for (int b = 0; b < 2; ++b) {
-        const int hy = ly + b;
-        if (hy >= 4) continue;
-        const float wzy = wz[a] * wy[b];
+  for (int w = 1; w < kFaces; w *= 2) {
 #pragma unroll
-        for (int d = 0; d < 2; ++d) {
-          const int hx = lx + d;
-          if (hx >= 4) continue;
-          const float sw = wzy * wx[d];
-          float* h = hist + ((hz * 4 + hy) * 4 + hx) * 12;
-          atomicAdd(h + vert[0], sw * val[0]);
-          atomicAdd(h + vert[1], sw * val[1]);
-          atomicAdd(h + vert[2], sw * val[2]);
+    for (int i = 0; i + w < kFaces; i += 2 * w) {
+      const bool right = v[i + w] > v[i];
+      v[i] = right ? v[i + w] : v[i];
+      id[i] = right ? id[i + w] : id[i];
+    }
+  }
+  return id[0];
+}
+
+// Gradient, face, barycentric and hat weights of one voxel that passed
+// the geometry tests, added into histogram h.
+template <int kMode>
+__device__ __forceinline__ void accumulate(
+    const Params& p, const Frame& f, const float* __restrict__ lv,
+    size_t c, size_t lplane, int nx, float sq, const float* vb,
+    float scale, const Normals& nrm, const float* s_vinv,
+    const int* s_vert, int* h) {
+  const float w = expf(-0.5f * sq / p.sig2);
+  const float gx = 0.5f * (lv[c + 1] - lv[c - 1]) * p.inv_ux * w;
+  const float gy = 0.5f * (lv[c + nx] - lv[c - nx]) * p.inv_uy * w;
+  const float gz = 0.5f * (lv[c + lplane] - lv[c - lplane]) * p.inv_uz * w;
+  const float grx = f.r0 * gx + f.r3 * gy + f.r6 * gz;
+  const float gry = f.r1 * gx + f.r4 * gy + f.r7 * gz;
+  const float grz = f.r2 * gx + f.r5 * gy + f.r8 * gz;
+  const float mag2 = grx * grx + gry * gry + grz * grz;
+  if (!(mag2 >= p.bary_eps)) return;
+
+  const int face = best_face(nrm, grx, gry, grz);
+  const float* m = s_vinv + 9 * face;
+  const float b0 = m[0] * grx + m[1] * gry + m[2] * grz;
+  const float b1 = m[3] * grx + m[4] * gry + m[5] * grz;
+  const float b2 = m[6] * grx + m[7] * gry + m[8] * grz;
+  const float bsum = b0 + b1 + b2;
+  if (!(bsum > 0.0f)) return;
+  const float mag = sqrtf(mag2);
+  const float val[3] = {b0 / bsum * mag, b1 / bsum * mag, b2 / bsum * mag};
+  const int* vert = s_vert + 3 * face;
+
+  int lz, ly, lx;
+  float wz[2], wy[2], wx[2];
+  hat(vb[2], &lz, &wz[0], &wz[1]);
+  hat(vb[1], &ly, &wy[0], &wy[1]);
+  hat(vb[0], &lx, &wx[0], &wx[1]);
+#pragma unroll
+  for (int a = 0; a < 2; ++a) {
+    const int hz = lz + a;
+    if (hz >= 4) continue;
+#pragma unroll
+    for (int b = 0; b < 2; ++b) {
+      const int hy = ly + b;
+      if (hy >= 4) continue;
+      const float wzy = wz[a] * wy[b];
+#pragma unroll
+      for (int d = 0; d < 2; ++d) {
+        const int hx = lx + d;
+        if (hx >= 4) continue;
+        const float sw = wzy * wx[d] * scale;
+        const int cell = ((hz * 4 + hy) * 4 + hx) * 12;
+#pragma unroll
+        for (int t = 0; t < 3; ++t) {
+          // round(sw * val) as an int: adding 1.5 * 2^23 leaves the
+          // rounded integer in the low mantissa bits (|sw * val| < 2^22).
+          const float q = __fmaf_rn(sw, val[t], kRound);
+          hist_add<kMode>(h, cell + vert[t],
+                          __float_as_int(q) - __float_as_int(kRound));
         }
       }
     }
   }
+}
+
+template <int kMode>
+__global__ void __launch_bounds__(kThreads) descrip_window_kernel(
+    const float* __restrict__ level, int nz, int ny, int nx,
+    const int* __restrict__ vol, const float* __restrict__ centers,
+    const float* __restrict__ rot, int rz, int ry, int rx, int cz, int cy,
+    int cx, int planes, Params p, Normals nrm,
+    const float* __restrict__ level_absmax,
+    const float* __restrict__ tables, const int* __restrict__ face_idx,
+    float* __restrict__ out) {
+  constexpr int kCopies = kMode == kWarpHist ? kWarps : 1;
+  __shared__ int ihist[kCopies * kHist];   // this pass's fixed-point sums
+  __shared__ float hist[kHist];
+  __shared__ float s_vinv[kFaces * 9];
+  __shared__ int s_vert[kFaces * 3];
+  __shared__ int l_off[kThreads + 1];   // a round's lines: span offsets,
+  __shared__ int l_x0[kThreads];        // first x and packed (dz, dy)
+  __shared__ int l_yz[kThreads];
+  __shared__ int warp_sum[kWarps];
+
+  const int k = blockIdx.x;
+  const int tid = threadIdx.x;
+  const int lane = tid & 31, warp = tid >> 5;
+  for (int i = tid; i < kCopies * kHist; i += kThreads) ihist[i] = 0;
+  for (int i = tid; i < kHist; i += kThreads) hist[i] = 0.0f;
+  for (int i = tid; i < kFaces * 3; i += kThreads) {
+    s_vert[i] = face_idx[i];
+  }
+  for (int i = tid; i < kFaces * 9; i += kThreads)
+    s_vinv[i] = tables[kFaces * 3 + i];
   __syncthreads();
-  for (int i = tid; i < kHist; i += blockDim.x) o[i] = hist[i];
+
+  const float* r = rot + 9 * k;
+  const Frame f{centers[3 * k + 2], centers[3 * k + 1], centers[3 * k],
+                r[0], r[1], r[2], r[3], r[4], r[5], r[6], r[7], r[8]};
+  const int sz = core_start(f.cz, rz, nz, cz);
+  const int sy = core_start(f.cy, ry, ny, cy);
+  const int sx = core_start(f.cx, rx, nx, cx);
+  const size_t lplane = static_cast<size_t>(ny) * nx;
+  const float* lv =
+      level + static_cast<size_t>(vol ? vol[k] : 0) * nz * lplane;
+  int* h = ihist + (kMode == kWarpHist ? warp * kHist : 0);
+  // Fixed-point scale, a power of two: a contribution is at most |g| <=
+  // max|level| * |1 / units| (times the bary and hat weights, <= 1), and a
+  // histogram copy takes at most kPass / kCopies voxels a pass, one
+  // contribution per bin each, so a pass's sums stay below 2^30 and one
+  // scaled contribution below 2^30 / 512.
+  const float inv_u = sqrtf(p.inv_ux * p.inv_ux + p.inv_uy * p.inv_uy +
+                            p.inv_uz * p.inv_uz);
+  const float bound = 1.01f * level_absmax[0] * inv_u * (kPass / kCopies);
+  int e2 = 0;
+  frexpf(1073741824.0f / bound, &e2);
+  const float scale =
+      bound > 1e-30f && isfinite(bound) ? ldexpf(1.0f, e2 - 1) : 1.0f;
+  const float inv_scale = 1.0f / scale;
+
+  // Rounds of kThreads core lines of this slab. Each thread cuts one line
+  // to its span (line_span); a block-wide prefix sum of the span lengths
+  // lays the round's candidate voxels out densely, so every thread tests
+  // one candidate per step whatever the line lengths.
+  const int z_lo = blockIdx.y * planes;
+  const int nlines = min(planes, cz - z_lo) * cy;
+  for (int line0 = 0; line0 < nlines; line0 += kThreads) {
+    const int line = line0 + tid;
+    int len = 0, x_lo = 0, packed_yz = 0;
+    if (line < nlines) {
+      const int lz = line / cy, ly = line - lz * cy;
+      const int z = sz + z_lo + lz, y = sy + ly;
+      const float vy =
+          __fmul_rn(__fsub_rn(static_cast<float>(y), f.cy), p.uy);
+      const float vz =
+          __fmul_rn(__fsub_rn(static_cast<float>(z), f.cz), p.uz);
+      int x_hi;
+      line_span(p, f, vy, vz, sx, cx, &x_lo, &x_hi);
+      len = max(0, x_hi - x_lo + 1);
+      packed_yz = ((z - sz) << 20) | ((y - sy) << 10);
+    }
+    // Exclusive prefix sum of len over the block.
+    int incl = len;
+#pragma unroll
+    for (int o = 1; o < 32; o <<= 1) {
+      const int t = __shfl_up_sync(0xffffffffu, incl, o);
+      if (lane >= o) incl += t;
+    }
+    if (lane == 31) warp_sum[warp] = incl;
+    __syncthreads();
+    int before = 0;
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) before += w < warp ? warp_sum[w] : 0;
+    l_off[tid] = before + incl - len;
+    l_x0[tid] = x_lo;
+    l_yz[tid] = packed_yz;
+    if (tid == kThreads - 1) l_off[kThreads] = before + incl;
+    __syncthreads();
+    const int total = l_off[kThreads];
+
+    // Passes of at most kPass candidates: lane l of warp w takes
+    // candidates l * q + w, l * q + w + kWarps, ... of the pass, so the
+    // lanes of a warp sit q candidates apart, on different lines and mostly
+    // in different bins, and each lane's candidates only move forward.
+    for (int v0 = 0; v0 < total; v0 += kPass) {
+      const int q = (min(kPass, total - v0) + 31) >> 5;
+      int a = 0;   // line of this lane's current candidate
+      for (int jj = warp; jj < q; jj += kWarps) {
+        const int v = v0 + lane * q + jj;
+        if (v >= total) break;
+        if (jj == warp) {
+          int b = kThreads - 1;   // last line with l_off <= v
+          while (a < b) {
+            const int m = (a + b + 1) >> 1;
+            if (l_off[m] <= v) a = m; else b = m - 1;
+          }
+        } else {
+          while (l_off[a + 1] <= v) ++a;
+        }
+        const int pk = l_yz[a];
+        const int z = sz + (pk >> 20), y = sy + ((pk >> 10) & 1023),
+                  x = l_x0[a] + (v - l_off[a]);
+        float vv[3], sq, vb[3];
+        if (!voxel_frame(p, f, x, y, z, vv, &sq, vb)) continue;
+        accumulate<kMode>(p, f, lv,
+                          (static_cast<size_t>(z) * ny + y) * nx + x,
+                          lplane, nx, sq, vb, scale, nrm, s_vinv, s_vert,
+                          h);
+      }
+      __syncthreads();
+      // Fold the pass's fixed-point sums into the float histogram.
+      for (int i = tid; i < kHist; i += kThreads) {
+        long long sum = 0;
+#pragma unroll
+        for (int w = 0; w < kCopies; ++w) {
+          sum += ihist[w * kHist + i];
+          ihist[w * kHist + i] = 0;
+        }
+        hist[i] += static_cast<float>(sum) * inv_scale;
+      }
+      __syncthreads();
+    }
+  }
+  // Row k's histogram, or its slab's partial (k * slabs + slab).
+  float* o = out + (static_cast<size_t>(k) * gridDim.y + blockIdx.y) * kHist;
+  for (int i = tid; i < kHist; i += kThreads) o[i] = hist[i];
+}
+
+// Sum each row's slab partials (rows, slabs, 768) in slab order.
+__global__ void merge_slabs_kernel(const float* __restrict__ part, int slabs,
+                                   float* __restrict__ out) {
+  const size_t k = blockIdx.x;
+  const float* p = part + k * slabs * kHist;
+  for (int i = threadIdx.x; i < kHist; i += blockDim.x) {
+    float s = p[i];
+    for (int j = 1; j < slabs; ++j) s += p[static_cast<size_t>(j) * kHist + i];
+    out[k * kHist + i] = s;
+  }
 }
 
 }  // namespace
 
 // Raw (unnormalized) descriptors for `num_rows` keypoints of one level
 // bucket. level (B, nz, ny, nx) f32; vol (num_rows,) i32 volume of each
-// row; starts (num_rows, 3) i32 core starts (z, y, x);
-// centers (num_rows, 3) f32 (z, y, x); rot (num_rows, 9) f32 row-major R;
-// tables: 20x3 outward normals then 20x9 inverse vertex matrices (f32);
-// face_idx (20, 3) i32 histogram vertex of each face corner;
-// out (num_rows, 768) f32. Returns cudaGetLastError() after the launch.
+// row, or null for volume 0; centers (num_rows, 3) f32 (z, y, x); rot
+// (num_rows, 9) f32 row-major R; radii (rz, ry, rx) and cores (cz, cy, cx)
+// the window half-extents and clamped core extents; rows split into
+// `slabs` z-slabs of `planes` core planes (slabs * planes >= cz); variant
+// 0 or 1 (the accumulation, see above); tables: 20x3 outward normals then
+// 20x9 inverse vertex matrices (f32); face_idx (20, 3) i32 histogram vertex
+// of each face corner; out (num_rows, 768) f32; scratch count * slabs *
+// 768 f32 (unused when slabs == 1). Returns the first CUDA error of the
+// launches.
 extern "C" int sift3d_descrip_window(
     const float* level, int nz, int ny, int nx, const int* vol,
-    const int* starts,
-    const float* centers, const float* rot, int num_rows, int count, int cz,
-    int cy, int cx, float ux, float uy, float uz, float inv_ux, float inv_uy,
+    const float* centers, const float* rot, int num_rows, int count, int rz,
+    int ry, int rx, int cz, int cy, int cx, int planes, int slabs,
+    int variant, float ux, float uy, float uz, float inv_ux, float inv_uy,
     float inv_uz, float rad2, float sig2, float half_width, float bin_fctr,
-    float bary_eps, const float* tables, const int* face_idx, float* out,
+    float bary_eps, const float* normals, const float* level_absmax,
+    const float* tables, const int* face_idx, float* out, float* scratch,
     void* stream) {
   if (num_rows <= 0) return 0;
+  if (planes < 1 || slabs < 1 || slabs * planes < cz || cz > 1024 ||
+      cy > 1024 || cx > 1024 ||
+      (variant != kWarpHist && variant != kWarpCombine))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  count = max(0, min(count, num_rows));
+  if (count < num_rows) {
+    const cudaError_t err = cudaMemsetAsync(
+        out + static_cast<size_t>(count) * kHist, 0,
+        static_cast<size_t>(num_rows - count) * kHist * sizeof(float), s);
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  if (count == 0) return 0;
+  Normals nrm;
+  for (int i = 0; i < kFaces * 3; ++i) nrm.n[i] = normals[i];
   const Params p{ux, uy, uz, inv_ux, inv_uy, inv_uz, rad2, sig2,
                  half_width, bin_fctr, bary_eps};
-  descrip_window_kernel<<<num_rows, kThreads, 0,
-                          static_cast<cudaStream_t>(stream)>>>(
-      level, nz, ny, nx, vol, starts, centers, rot, count, cz, cy, cx, p, tables,
-      face_idx, out);
+  float* dst = slabs > 1 ? scratch : out;
+  const dim3 grid(count, slabs);
+  if (variant == kWarpHist) {
+    descrip_window_kernel<kWarpHist><<<grid, kThreads, 0, s>>>(
+        level, nz, ny, nx, vol, centers, rot, rz, ry, rx, cz, cy, cx, planes,
+        p, nrm, level_absmax, tables, face_idx, dst);
+  } else {
+    descrip_window_kernel<kWarpCombine><<<grid, kThreads, 0, s>>>(
+        level, nz, ny, nx, vol, centers, rot, rz, ry, rx, cz, cy, cx, planes,
+        p, nrm, level_absmax, tables, face_idx, dst);
+  }
+  const cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess || slabs == 1) return static_cast<int>(err);
+  merge_slabs_kernel<<<count, 256, 0, s>>>(scratch, slabs, out);
   return static_cast<int>(cudaGetLastError());
 }

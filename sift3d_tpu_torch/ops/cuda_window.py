@@ -18,13 +18,27 @@ zero.
   per-row volume and start; no stacked (B*K, wz, wy, wx) copy of the
   windows is built (that pre-gather is what ran the TPU version out of
   memory at the config-4 batch capacities).
-- On the H100 the kernel is bound by arithmetic and shared-memory atomics,
-  not by device memory (see ``descrip_work`` for the counts).
+- Before, the kernel ran one block per row (a 256^3 level bucket of 1-25
+  rows filled at most 25 of 132 SMs), walked every voxel of the box, and
+  its float shared atomics (compare-and-swap loops on sm_90) serialized.
+  Now the grid is rows x z-slabs (``slab_plan``: at least 2 x 132 blocks
+  where rows x planes allow it; slab partials summed in slab order by a
+  second pass, the split that ``descrip_window_plain(..., planes=...)``
+  repeats), each (z, y) line is cut to its span in the sphere and the
+  rotated bin cube (``line_span``) and the candidates are laid out densely
+  over the threads, and bins are added as fixed-point integers with native
+  shared atomics into a private histogram per warp (``VARIANT`` 0; variant
+  1 combines equal bins across a warp's lanes into one histogram), folded
+  into fp32 every 2048 candidates.
+- On the H100 the kernel is bound by its fp32 arithmetic per voxel, not by
+  device memory (see ``descrip_work`` for the counts); at small buckets by
+  the launches' host overhead.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 
 import numpy as np
@@ -39,11 +53,28 @@ from .geometry import face_solve_tables, face_tables, icos_hist_bin, vertex_weig
 # Window voxels per chunk of the plain version (bounds its temporaries:
 # about 0.5 KB per voxel).
 _CHUNK_VOXELS = 1 << 22
+# The H100's SMs; a launch should hold at least twice as many blocks where
+# the rows and core planes allow it.
+NUM_SMS = 132
+# Margins of the kernel's line spans (``line_span``): the bin-cube cut in
+# bin units, and the slope below which a line runs parallel to a face.
+BIN_EPS = 1e-3
+FLAT = 1e-6
+# The kernel's accumulation: 0 a private histogram per warp, 1 equal bins
+# combined across a warp's lanes before one atomic on the block's histogram
+# (both timed by ``chip_smoke.py``; 0 is the faster on the H100).
+VARIANT = 0
 
 
 def geometry_constants(units, sigma: float, rad: float) -> dict:
     """fp32 constants shared bit for bit by the kernel and the plain
     version (rounded as the JAX package rounds them)."""
+    return _geometry_constants(tuple(float(u) for u in units), float(sigma),
+                               float(rad))
+
+
+@functools.lru_cache(maxsize=256)
+def _geometry_constants(units, sigma: float, rad: float) -> dict:
     rad32 = np.float32(rad)
     sig32 = np.float32(sigma)
     half_width = rad32 / np.float32(math.sqrt(2))
@@ -83,12 +114,18 @@ def _window_frame(shape, centers, R, radii, cores, g):
     return starts, sq, vb, in_sphere
 
 
-def _plain_chunk(level, vol, centers, R, radii, cores, units, g):
-    """Raw histograms (C, 768) of a chunk of keypoints."""
+def _plain_chunk(level, vol, centers, R, radii, cores, units, g,
+                 z_range=None):
+    """Raw histograms (C, 768) of a chunk of keypoints, over the core
+    planes [z0, z1) of ``z_range`` when it is given."""
     C = centers.shape[0]
     V = cores[0] * cores[1] * cores[2]
     starts, sq, (vbx, vby, vbz), in_sphere = _window_frame(
         level.shape[1:], centers, R, radii, cores, g)
+    if z_range is not None:
+        iz = torch.arange(cores[0], device=level.device)
+        in_sphere = in_sphere & ((iz >= z_range[0]) &
+                                 (iz < z_range[1]))[None, :, None, None]
     nh = float(NHIST_PER_DIM)
     inside = ((vbx >= 0) & (vby >= 0) & (vbz >= 0) &
               (vbx < nh) & (vby < nh) & (vbz < nh))
@@ -124,10 +161,12 @@ def _plain_chunk(level, vol, centers, R, radii, cores, units, g):
 
 
 def descrip_window_plain(level, centers, R, count: int, radii, cores,
-                         units, sigma: float, rad: float,
-                         vol=None) -> torch.Tensor:
+                         units, sigma: float, rad: float, vol=None,
+                         planes: int | None = None) -> torch.Tensor:
     """The plain PyTorch version: raw (K, 768) histograms, chunked over
-    keypoints; rows >= count are zero."""
+    keypoints; rows >= count are zero. With ``planes``, each row's core is
+    split into z-slabs of that many planes, each slab's histogram is
+    computed alone and the slabs are summed in order (the kernel's split)."""
     K = centers.shape[0]
     level, vol = batch_view(level, K, vol)
     out = torch.zeros((K, DESC_NUMEL), dtype=torch.float32,
@@ -137,22 +176,76 @@ def descrip_window_plain(level, centers, R, count: int, radii, cores,
     chunk = max(1, _CHUNK_VOXELS // (cores[0] * cores[1] * cores[2]))
     centers = centers.float()
     R = R.float()
+    slabs = [None] if planes is None else \
+        [(z0, z0 + planes) for z0 in range(0, cores[0], planes)]
     for k0 in range(0, n, chunk):
         k1 = min(n, k0 + chunk)
-        out[k0:k1] = _plain_chunk(level, vol[k0:k1], centers[k0:k1],
-                                  R[k0:k1], radii, cores, units, g)
+        for z_range in slabs:
+            out[k0:k1] += _plain_chunk(level, vol[k0:k1], centers[k0:k1],
+                                       R[k0:k1], radii, cores, units, g,
+                                       z_range)
     return out
+
+
+def slab_plan(rows: int, cz: int) -> tuple[int, int]:
+    """(core planes per slab, slabs per row) of a kernel launch over
+    ``rows`` rows of core depth ``cz``: the grid (rows x slabs blocks)
+    reaches 2 x NUM_SMS where rows x cz allows it; a bucket that fills the
+    card alone takes one slab per row."""
+    want = -(-2 * NUM_SMS // max(1, rows))
+    planes = max(1, cz // want)
+    return planes, -(-cz // planes)
+
+
+def line_span(center, y: int, z: int, R, g: dict, sx: int,
+              cx: int) -> tuple[int, int] | None:
+    """The kernel's x-span [x_lo, x_hi] of the core line (y, z), in fp32 as
+    on the card: every voxel of the line inside the sphere and the rotated
+    bin cube lies in it (each cut widened by one voxel). ``center`` is
+    (z, y, x) in level voxels, ``R`` the row's 3x3 rotation, ``g`` from
+    ``geometry_constants``, [sx, sx + cx) the core. None when empty."""
+    f = np.float32
+    cz_, cy_, cx_ = (f(c) for c in center)
+    R = np.asarray(R, np.float32)
+    vy = f(f(f(y) - cy_) * f(g["uy"]))
+    vz = f(f(f(z) - cz_) * f(g["uz"]))
+    rad2 = f(g["rad2"])
+    yz = f(vy * vy + vz * vz)
+    if not yz <= rad2:
+        return None
+    half = f(f(np.sqrt(f(rad2 - yz))) * f(g["inv_ux"]))
+    t_lo, t_hi = -half, half
+    bf, hw = f(g["bin_fctr"]), f(g["half_width"])
+    k_lo = f(f(-f(BIN_EPS) / bf) - hw)
+    k_hi = f(f(f(4.0 + BIN_EPS) / bf) - hw)
+    for i in range(3):
+        a = f(R[1, i] * vy + R[2, i] * vz)
+        b = f(R[0, i] * f(g["ux"]))
+        if abs(b) > FLAT:
+            t0, t1 = f((k_lo - a) / b), f((k_hi - a) / b)
+            if b < 0:
+                t0, t1 = t1, t0
+            t_lo, t_hi = max(t_lo, t0), min(t_hi, t1)
+        elif not k_lo <= a <= k_hi:
+            return None
+    lo = max(sx, int(np.ceil(f(cx_ + t_lo))) - 1)
+    hi = min(sx + cx - 1, int(np.floor(f(cx_ + t_hi))) + 1)
+    return (lo, hi) if lo <= hi else None
 
 
 _tables_cache: dict = {}
 
 
 def _tables(device):
+    """(host normals (20, 3) f32, device normals + inverse vertex
+    matrices, device face vertex indices) of the icosahedron."""
     t = _tables_cache.get(device)
     if t is None:
         normals, vinv = face_solve_tables()
+        normals = np.ascontiguousarray(normals, dtype=np.float32)
         tab = np.concatenate([normals.reshape(-1), vinv.reshape(-1)])
         t = _tables_cache[device] = (
+            normals,
             torch.as_tensor(tab, dtype=torch.float32, device=device),
             torch.as_tensor(face_tables()["idx"], dtype=torch.int32,
                             device=device).contiguous())
@@ -163,10 +256,54 @@ def _kernel_fn():
     fn = _build.load("descrip_window").sift3d_descrip_window
     if fn.argtypes is None:
         P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        fn.argtypes = [P, I, I, I, P, P, P, P, I, I, I, I, I,
-                       F, F, F, F, F, F, F, F, F, F, F, P, P, P, P]
+        fn.argtypes = [P, I, I, I, P, P, P, I, I, I, I, I, I, I, I, I, I, I,
+                       F, F, F, F, F, F, F, F, F, F, F, P, P, P, P, P, P,
+                       P]
         fn.restype = ctypes.c_int
     return fn
+
+
+def _launch(level, centers, R, count: int, radii, cores, units,
+            sigma: float, rad: float, vol=None,
+            variant: int = VARIANT) -> torch.Tensor:
+    """One kernel launch (rows x slabs blocks, then the slab merge)."""
+    if level.dtype != torch.float32 or level.ndim not in (3, 4):
+        raise ValueError("descrip_window: level must be a 3-D or 4-D float32 "
+                         "tensor")
+    K = centers.shape[0]
+    level = level.contiguous()
+    if level.ndim == 3:
+        level = level[None]
+    if vol is not None:        # else every row reads volume 0
+        vol = vol.to(device=level.device, dtype=torch.int32).contiguous()
+    centers = centers.to(device=level.device,
+                         dtype=torch.float32).contiguous()
+    rot = R.to(device=level.device, dtype=torch.float32).reshape(K, 9)
+    rot = rot.contiguous()
+    n = max(0, min(int(count), K))
+    planes, slabs = slab_plan(n, cores[0])
+    scratch = n * slabs * DESC_NUMEL if slabs > 1 else 0
+    buf = torch.empty(K * DESC_NUMEL + scratch, dtype=torch.float32,
+                      device=level.device)
+    out = buf[:K * DESC_NUMEL].view(K, DESC_NUMEL)
+    if K == 0:
+        return out
+    normals, tables, face_idx = _tables(level.device)
+    g = geometry_constants(units, sigma, rad)
+    # Bounds the kernel's fixed-point scale (no host sync).
+    absmax = torch.linalg.vector_norm(level, float("inf"))
+    err = _kernel_fn()(
+        level.data_ptr(), *level.shape[1:],
+        None if vol is None else vol.data_ptr(), centers.data_ptr(),
+        rot.data_ptr(), K, n, *radii, *cores, planes, slabs, variant,
+        g["ux"], g["uy"], g["uz"], g["inv_ux"], g["inv_uy"], g["inv_uz"],
+        g["rad2"], g["sig2"], g["half_width"], g["bin_fctr"], g["bary_eps"],
+        normals.ctypes.data, absmax.data_ptr(), tables.data_ptr(),
+        face_idx.data_ptr(),
+        out.data_ptr(), buf[K * DESC_NUMEL:].data_ptr() if scratch else None,
+        torch.cuda.current_stream(level.device).cuda_stream)
+    _build.check(err, "descrip_window launch")
+    return out
 
 
 def descrip_window(level, centers, R, count: int, radii, cores, units,
@@ -189,30 +326,8 @@ def descrip_window(level, centers, R, count: int, radii, cores, units,
                                     units, sigma, rad, vol)
     if level.device.type != "cuda":
         raise ValueError(f"descrip_window: unsupported device {level.device}")
-    if level.dtype != torch.float32 or level.ndim not in (3, 4):
-        raise ValueError("descrip_window: level must be a 3-D or 4-D float32 "
-                         "tensor")
-    K = centers.shape[0]
-    level, vol = batch_view(level, K, vol)
-    level = level.contiguous()
-    vol = vol.to(torch.int32).contiguous()
-    centers = centers.to(device=level.device, dtype=torch.float32).contiguous()
-    rot = R.to(device=level.device, dtype=torch.float32).reshape(K, 9).contiguous()
-    starts = window_starts(level.shape[1:], torch.floor(centers).long(),
-                           radii, cores).to(torch.int32).contiguous()
-    out = torch.empty((K, DESC_NUMEL), dtype=torch.float32, device=level.device)
-    if K == 0:
-        return out
-    tables, face_idx = _tables(level.device)
-    g = geometry_constants(units, sigma, rad)
-    err = _kernel_fn()(
-        level.data_ptr(), *level.shape[1:], vol.data_ptr(), starts.data_ptr(),
-        centers.data_ptr(), rot.data_ptr(), K, min(int(count), K), *cores,
-        g["ux"], g["uy"], g["uz"], g["inv_ux"], g["inv_uy"], g["inv_uz"],
-        g["rad2"], g["sig2"], g["half_width"], g["bin_fctr"], g["bary_eps"],
-        tables.data_ptr(), face_idx.data_ptr(), out.data_ptr(),
-        torch.cuda.current_stream(level.device).cuda_stream)
-    _build.check(err, "descrip_window launch")
+    out = _launch(level, centers, R, count, radii, cores, units, sigma, rad,
+                  vol)
     descrip_window.launches += 1
     return out
 
@@ -228,6 +343,28 @@ OPS_ACTIVE_VOXEL = 259
 OPS_BOX_VOXEL = 11
 
 
+def descrip_active(level, centers, R, count: int, radii, cores, units,
+                   sigma: float, rad: float, vol=None) -> tuple[int, int]:
+    """(voxels that pass the sphere and bin-cube tests, voxels of the
+    boxes) of one ``descrip_window`` call's rows below ``count``."""
+    level, _ = batch_view(level, centers.shape[0], vol)
+    n = min(int(count), centers.shape[0])
+    g = geometry_constants(units, sigma, rad)
+    nh = float(NHIST_PER_DIM)
+    box = cores[0] * cores[1] * cores[2]
+    active = 0
+    chunk = max(1, _CHUNK_VOXELS // box)
+    for k0 in range(0, n, chunk):
+        k1 = min(n, k0 + chunk)
+        _, _, (vbx, vby, vbz), in_sphere = _window_frame(
+            level.shape[1:], centers[k0:k1].float(), R[k0:k1].float(),
+            radii, cores, g)
+        inside = ((vbx >= 0) & (vby >= 0) & (vbz >= 0) &
+                  (vbx < nh) & (vby < nh) & (vbz < nh))
+        active += int((in_sphere & inside).sum())
+    return active, n * box
+
+
 def descrip_work(level, centers, R, count: int, radii, cores, units,
                  sigma: float, rad: float, vol=None) -> tuple[int, int]:
     """(bytes, fp32 operations) that one ``descrip_window`` call needs on
@@ -240,19 +377,9 @@ def descrip_work(level, centers, R, count: int, radii, cores, units,
     starts = window_starts(level.shape[1:], torch.floor(centers[:n]).long(),
                            radii, cores)
     covered = window_union(level.shape, vol[:n], starts, cores)
-    g = geometry_constants(units, sigma, rad)
-    nh = float(NHIST_PER_DIM)
-    box = cores[0] * cores[1] * cores[2]
-    active = 0
-    chunk = max(1, _CHUNK_VOXELS // box)
-    for k0 in range(0, n, chunk):
-        _, _, (vbx, vby, vbz), in_sphere = _window_frame(
-            level.shape[1:], centers[k0:k0 + chunk].float(), R[k0:k0 + chunk].float(),
-            radii, cores, g)
-        inside = ((vbx >= 0) & (vby >= 0) & (vbz >= 0) &
-                  (vbx < nh) & (vby < nh) & (vbz < nh))
-        active += int((in_sphere & inside).sum())
+    active, boxes = descrip_active(level, centers, R, count, radii, cores,
+                                   units, sigma, rad)
     nbytes = (4 * covered + n * 4 * (1 + 3 + 3 + 9) +
               centers.shape[0] * DESC_NUMEL * 4)
-    ops = active * OPS_ACTIVE_VOXEL + (n * box - active) * OPS_BOX_VOXEL
+    ops = active * OPS_ACTIVE_VOXEL + (boxes - active) * OPS_BOX_VOXEL
     return nbytes, ops

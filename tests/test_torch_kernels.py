@@ -165,3 +165,82 @@ def test_match_kernel_matches_plain_and_dense(cuda):
                        v2.to(cuda))
     np.testing.assert_array_equal(m_stream.cpu().numpy(),
                                   m_dense.cpu().numpy())
+
+
+@pytest.mark.parametrize("variant", [0, 1])
+def test_descrip_window_kernel_slab_split(cuda, variant):
+    """One row with a window of a 256^3 registration's finest level (rad
+    about 35 voxels): the launch splits it into z-slabs whose partials are
+    summed by the merge pass; both accumulation variants against plain."""
+    rng = np.random.default_rng(6)
+    shape = (80, 84, 78)
+    level = torch.as_tensor(_level(rng, shape))
+    units = (1.0, 1.0, 1.0)
+    sigma = float(np.float32(2.475) * np.float32(DESC_SIG_FCTR))
+    rad = float(np.float32(DESC_RAD_FCTR) * np.float32(sigma))
+    radii = tuple(int(math.ceil(rad / u)) for u in units)
+    cores = tuple(window_extent(r, n, False) for r, n in zip(radii, shape))
+    assert 34 <= rad <= 36
+    assert cuda_window.slab_plan(1, cores[0])[1] > 1
+    centers = torch.tensor([[40.3, 41.7, 38.2], [10.0, 10.0, 10.0]])
+    R = torch.as_tensor(np.linalg.qr(rng.standard_normal((3, 3)))[0],
+                        dtype=torch.float32).expand(2, 3, 3)
+    geom = (radii, cores, units, sigma, rad)
+    want = cuda_window.descrip_window_plain(level, centers, R, 1, *geom)
+    got = cuda_window._launch(level.to(cuda), centers.to(cuda), R.to(cuda),
+                              1, *geom, variant=variant)
+    torch.cuda.synchronize()
+    got = got.cpu()
+    assert torch.all(got[1:] == 0)
+    assert (got - want).abs().max() <= 1e-4 * want.abs().max()
+    before = cuda_window.descrip_window.launches
+    cuda_window.descrip_window(level.to(cuda), centers.to(cuda), R.to(cuda),
+                               1, *geom)
+    assert cuda_window.descrip_window.launches == before + 1
+
+
+def test_match_kernel_split_ranges(cuda):
+    """128 x 128 tiles over 18 target ranges: duplicated targets in
+    different ranges and invalid rows; indices exact against the plain
+    version (unsplit and split the kernel's way) and the dense matcher."""
+    rng = np.random.default_rng(2)
+    n1, n2 = 2500, 2300
+    d1 = rng.random((n1, 768)).astype(np.float32)
+    d2 = rng.random((n2, 768)).astype(np.float32)
+    d1 /= np.linalg.norm(d1, axis=1, keepdims=True)
+    d2 /= np.linalg.norm(d2, axis=1, keepdims=True)
+    for i in range(300):
+        d2[(i * 7) % 1900] = d1[i] + rng.normal(0, 0.004, 768)
+    d2[2000:2010] = d2[0:70:7]        # duplicates of planted targets
+    d1[2400:2405] = d1[:5]
+    side, per, ranges = cuda_match.match_plan(n1, n2)
+    bounds = cuda_match.range_bounds(n2, side, per)
+    assert side == 128 and ranges > 1
+    assert np.searchsorted(bounds, 63, "right") != \
+        np.searchsorted(bounds, 2009, "right")
+    v1 = torch.ones(n1, dtype=torch.bool)
+    v1[[3, 1700, 2499]] = False
+    v2 = torch.ones(n2, dtype=torch.bool)
+    v2[[5, 2299]] = False
+    t1, t2 = torch.as_tensor(d1), torch.as_tensor(d2)
+    inf = float("inf")
+    qsq = torch.where(v1, torch.sum(t1 * t1, 1), inf)
+    tsq = torch.where(v2, torch.sum(t2 * t2, 1), inf)
+    plain = cuda_match.reduce_one_way_plain(t1, t2, qsq, tsq)
+    split = cuda_match.reduce_one_way_plain(t1, t2, qsq, tsq, bounds=bounds)
+    got = cuda_match.reduce_one_way(t1.to(cuda), t2.to(cuda), qsq.to(cuda),
+                                    tsq.to(cuda))
+    torch.cuda.synchronize()
+    for want in (plain, split):
+        np.testing.assert_array_equal(got[2].cpu().numpy(), want[2].numpy())
+        for a, b in zip(got[:2], want[:2]):
+            np.testing.assert_allclose(a.cpu().numpy(), b.numpy(),
+                                       rtol=1e-5, atol=1e-5)
+    assert not np.isin(got[2].cpu().numpy(), np.arange(2000, 2010)).any()
+    m_stream = cuda_match.nn_match_streamed(t1.to(cuda), t2.to(cuda), 0.8,
+                                            v1.to(cuda), v2.to(cuda))
+    m_dense = nn_match(t1.to(cuda), t2.to(cuda), 0.8, v1.to(cuda),
+                       v2.to(cuda))
+    np.testing.assert_array_equal(m_stream.cpu().numpy(),
+                                  m_dense.cpu().numpy())
+    assert (m_dense >= 0).sum() >= 100

@@ -16,8 +16,9 @@ from sift3d_tpu.features.match import nn_match as jnn_match
 from sift3d_tpu.ops.pallas_match import nn_match_streamed as jstreamed
 
 from sift3d_tpu_torch.features.match import nn_match, ssd_matrix
-from sift3d_tpu_torch.ops.cuda_match import (nn_match_streamed,
-                                             reduce_one_way,
+from sift3d_tpu_torch.ops.cuda_match import (NUM_SMS, match_plan,
+                                             merge_top2, nn_match_streamed,
+                                             range_bounds, reduce_one_way,
                                              reduce_one_way_plain)
 
 torch.set_num_threads(1)
@@ -129,3 +130,65 @@ def test_all_invalid_rows_unmatched(sets):
     assert torch.isinf(best).all() and (idx == 0).all()
     assert (nn_match_streamed(t1, t2, 0.8, valid2=v2) == -1).all()
     assert (nn_match(t1, t2, 0.8, valid2=v2) == -1).all()
+
+
+# Target-range starts over the 170 targets of ``sets``: the duplicated
+# targets (150 = 10, 160 = 100) fall in different ranges, and [130, 131)
+# and [3, 4) hold only an invalid target.
+SPLITS = {
+    1: [0],
+    2: [0, 101],
+    3: [0, 130, 131],
+    7: [0, 3, 4, 50, 101, 150, 161],
+}
+
+
+@pytest.mark.parametrize("n_ranges", sorted(SPLITS))
+def test_streamed_split_merge(sets, n_ranges):
+    """The kernel's target split in plain PyTorch: each range reduced alone,
+    the partials folded by merge_top2, equals the unsplit reduction."""
+    d1, d2, v1, v2 = (torch.as_tensor(a) for a in sets)
+    inf = float("inf")
+    qsq = torch.where(v1, torch.sum(d1 * d1, 1), inf)
+    tsq = torch.where(v2, torch.sum(d2 * d2, 1), inf)
+    bounds = SPLITS[n_ranges]
+    assert len(bounds) == n_ranges
+    want = reduce_one_way_plain(d1, d2, qsq, tsq)
+    got = reduce_one_way_plain(d1, d2, qsq, tsq, block=64, bounds=bounds)
+    np.testing.assert_array_equal(got[2].numpy(), want[2].numpy())
+    for a, b in zip(got[:2], want[:2]):
+        np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=0, atol=1e-6)
+    # The duplicates never win over their first copy.
+    assert not np.isin(got[2].numpy(), [150, 160]).any()
+    assert np.isin(got[2].numpy(), [10, 100]).any()
+
+
+def test_merge_top2_all_invalid_range_keeps_index_zero():
+    """A range with no finite SSD (+inf, +inf, 0) neither takes the lead
+    nor moves the second; all-invalid everywhere stays (+inf, +inf, 0)."""
+    inf = float("inf")
+    t = torch.tensor
+    empty = (t([inf, inf]), t([inf, inf]), t([0, 0], dtype=torch.int32))
+    live = (t([1.0, inf]), t([2.0, inf]), t([7, 0], dtype=torch.int32))
+    tie = (t([1.0, 3.0]), t([5.0, 4.0]), t([9, 4], dtype=torch.int32))
+    b0, b1, i0 = merge_top2([empty, live, empty, tie])
+    np.testing.assert_array_equal(b0.numpy(), [1.0, 3.0])
+    np.testing.assert_array_equal(b1.numpy(), [1.0, 4.0])
+    np.testing.assert_array_equal(i0.numpy(), [7, 4])
+
+
+@pytest.mark.parametrize("nq,nt", [(146, 153), (700, 650), (2500, 2300),
+                                   (10000, 10000), (3, 0), (1, 1)])
+def test_match_plan_fills_card(nq, nt):
+    """Query tiles x target ranges reaches 2 x NUM_SMS blocks where the
+    tiles allow it, and the ranges cover the target tiles in order."""
+    side, per, ranges = match_plan(nq, nt)
+    q_tiles, t_tiles = -(-nq // side), -(-nt // side)
+    assert side in (32, 128) and ranges >= 1
+    assert (ranges - 1) * per < max(t_tiles, 1) <= ranges * per
+    if q_tiles * t_tiles >= 2 * NUM_SMS:
+        assert q_tiles * ranges >= 2 * NUM_SMS
+    else:
+        assert ranges == max(t_tiles, 1)
+    bounds = range_bounds(nt, side, per)
+    assert len(bounds) == ranges and bounds[0] == 0
