@@ -7,8 +7,7 @@ sm_90a, one process per source, into ``build/kernels/``), then:
 
 1. holds the descriptor-window kernel (1) against its plain PyTorch
    version on the real pyramid levels of a 256^3 volume (max abs deviation
-   <= 2e-3 on the postprocessed descriptors, rows past ``count`` zero), in
-   both accumulation variants (``cuda_window.VARIANT`` and the other);
+   <= 2e-3 on the postprocessed descriptors, rows past ``count`` zero);
 2. holds the orientation-window kernel (3) against its plain version on
    every level bucket of the same volume's extrema (first 64 rows, and 5
    rows past ``count`` that must come back zero): the float64 tensor sums
@@ -42,9 +41,9 @@ sm_90a, one process per source, into ``build/kernels/``), then:
    batched call (min of 5, pairs/s), and profiles one 256^3 registration
    and one batched call: each stage's ``sift3d.<stage>`` span on the host
    and the device, the device's busy time and idle share
-   (``scripts/profile_register.profile_call``). Kernel 1 is timed in both
-   accumulation variants, with its blocks per launch (``slab_plan``) and
-   the share of box voxels that pass its geometry tests; kernel 2 at the
+   (``scripts/profile_register.profile_call``). Kernel 1 is reported with
+   its blocks per launch (``slab_plan``) and the share of box voxels that
+   pass its geometry tests; kernel 2 at the
    main path's shape and at 2500 x 2300, with its tile side and target
    ranges (``match_plan``).
 
@@ -220,14 +219,10 @@ def check_orient(buckets, corner_thresh, label) -> dict:
 
 
 def check_descrip_window(buckets, label) -> float:
-    """Kernel 1 against its plain version on each bucket (5 extra rows past
-    count must be zero); the accumulation variant that the wrapper does
-    not use is held to the same tolerance."""
     from sift3d_tpu_torch.features.descriptor import postprocess
-    from sift3d_tpu_torch.ops.cuda_window import (VARIANT, _launch,
-                                                  descrip_window,
+    from sift3d_tpu_torch.ops.cuda_window import (descrip_window,
                                                   descrip_window_plain)
-    worst = worst_other = 0.0
+    worst = 0.0
     assert buckets, f"no keypoints ({label})"
     for lv, args in buckets:
         level, centers, R, n = args[:4]
@@ -237,24 +232,17 @@ def check_descrip_window(buckets, label) -> float:
         R_p = torch.cat([R, R[:1].expand(pad, 3, 3)])
         vol_p = None if vol is None else torch.cat([vol, vol[:1].expand(pad)])
         got = descrip_window(level, centers_p, R_p, n, *geom, vol_p)
-        other = _launch(level, centers_p, R_p, n, *geom, vol_p,
-                        variant=1 - VARIANT)
         want = descrip_window_plain(level, centers, R, n, *geom, vol)
         torch.cuda.synchronize()
         assert torch.all(got[n:] == 0), f"rows past count not zero at {lv}"
-        assert torch.all(other[n:] == 0), f"rows past count not zero at {lv}"
-        ref = postprocess(want)
-        dev = (postprocess(got[:n]) - ref).abs().max().item()
-        dev_other = (postprocess(other[:n]) - ref).abs().max().item()
+        dev = (postprocess(got[:n]) - postprocess(want)).abs().max().item()
         log(f"kernel 1 ({label}) level {lv}: {n} rows, cores {args[5]}, "
-            f"max |dev| {dev:.3e} (variant {1 - VARIANT}: {dev_other:.3e})")
+            f"max |dev| {dev:.3e}")
         worst = max(worst, dev)
-        worst_other = max(worst_other, dev_other)
     print(f"descrip_window vs plain ({label}): max abs deviation "
-          f"{worst:.3e} over {len(buckets)} level buckets, the other "
-          f"accumulation variant {worst_other:.3e} (tolerance {DESC_TOL})")
+          f"{worst:.3e} over {len(buckets)} level buckets "
+          f"(tolerance {DESC_TOL})")
     assert worst <= DESC_TOL, worst
-    assert worst_other <= DESC_TOL, worst_other
     return worst
 
 
@@ -558,7 +546,7 @@ def main() -> int:
     from sift3d_tpu_torch.ops.cuda_orient import (orient_terms,
                                                   orient_terms_plain,
                                                   orient_work)
-    from sift3d_tpu_torch.ops.cuda_window import (_launch, descrip_active,
+    from sift3d_tpu_torch.ops.cuda_window import (descrip_active,
                                                   descrip_window,
                                                   descrip_window_plain,
                                                   descrip_work, slab_plan)
@@ -567,20 +555,15 @@ def main() -> int:
         nb, ops = work_sum(descrip_work, [a for _, a in args])
         active, box = work_sum(descrip_active, [a for _, a in args])
         b, by = bound_ms(nb, ops)
-        out = dict(launches=len(args), rows=sum(a[3] for _, a in args),
-                   blocks_per_launch=[a[3] * slab_plan(a[3], a[5][0])[1]
-                                      for _, a in args],
-                   active_voxels=active, box_voxels=box,
-                   active_share=active / box,
-                   ms=cuda_ms(lambda: [descrip_window(*a) for _, a in args],
-                              reps),
-                   plain_ms=cuda_ms(lambda: [descrip_window_plain(*a)
-                                             for _, a in args], 1),
-                   bound_ms=b, bound_by=by, bytes=nb, ops=ops)
-        for v in (0, 1):
-            out[f"variant_{v}_ms"] = cuda_ms(
-                lambda v=v: [_launch(*a, variant=v) for _, a in args], reps)
-        return out
+        return dict(
+            launches=len(args), rows=sum(a[3] for _, a in args),
+            blocks_per_launch=[a[3] * slab_plan(a[3], a[5][0])[1]
+                               for _, a in args],
+            active_voxels=active, box_voxels=box, active_share=active / box,
+            ms=cuda_ms(lambda: [descrip_window(*a) for _, a in args], reps),
+            plain_ms=cuda_ms(lambda: [descrip_window_plain(*a)
+                                      for _, a in args], 1),
+            bound_ms=b, bound_by=by, bytes=nb, ops=ops)
     k1_256 = k1_times(k1_args, 5)
     k1_batch = k1_times(k1_batch_args, 3)
     detail["descrip_window"] = dict(
@@ -592,8 +575,7 @@ def main() -> int:
         print(f"descrip_window per {label} ({t['launches']} launches, "
               f"{t['rows']} rows, {min(blk)}-{max(blk)} blocks a launch, "
               f"active voxels {t['active_share']:.4f} of the boxes): "
-              f"{t['ms']:.4f} ms (variant 0 {t['variant_0_ms']:.4f}, "
-              f"variant 1 {t['variant_1_ms']:.4f}), plain "
+              f"{t['ms']:.4f} ms, plain "
               f"{t['plain_ms']:.1f} ms, bound {t['bound_ms']:.4f} ms "
               f"({t['bound_by']}) [{card}]")
 
@@ -707,10 +689,6 @@ def main() -> int:
              batch_ms=k1_batch["ms"], batch_plain_ms=k1_batch["plain_ms"],
              batch_bound_ms=k1_batch["bound_ms"],
              batch_bound_by=k1_batch["bound_by"],
-             variant=cuda_window.VARIANT,
-             variant_ms={f"{v}": [k1_256[f"variant_{v}_ms"],
-                                  k1_batch[f"variant_{v}_ms"]]
-                         for v in (0, 1)},
              blocks_per_launch_256=k1_256["blocks_per_launch"],
              blocks_per_launch_batch=k1_batch["blocks_per_launch"],
              active_share_256=k1_256["active_share"],

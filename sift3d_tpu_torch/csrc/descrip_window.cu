@@ -40,7 +40,7 @@
 //     (the batch) takes one slab per row. With several slabs each block
 //     writes a partial histogram to scratch (blocks x 768 floats) and a
 //     second pass sums a row's slabs in slab order.
-//   - A block takes its slab's (z, y) lines 128 at a time: each thread cuts
+//   - A block takes its slab's (z, y) lines 256 at a time: each thread cuts
 //     one line to its x-span inside the sphere and the rotated bin cube
 //     (one voxel of margin; the exact unfused fp32 sphere and bin-cube
 //     tests still run per voxel, so the masks agree with the plain version
@@ -50,9 +50,9 @@
 //     and no lane idles on a voxel outside the cut.
 //   - Each bin update is a native shared-memory integer atomicAdd
 //     (ATOMS.ADD) of the contribution in fixed point, into a private
-//     histogram per warp (variant 0) or, for comparison, one histogram per
-//     block after the lanes that hit the same bin have combined their
-//     values (variant 1, cooperative-groups labeled partition and reduce).
+//     histogram per warp. (Lanes that hit the same bin first combining
+//     their values, then one atomic on a single histogram per block, was
+//     measured and is several times slower.)
 //     The scale is a power of two from max|level| (a device scalar, no
 //     host sync) such that a pass of 2048 candidates cannot overflow; after
 //     each pass the integer sums fold into a float histogram. Each
@@ -60,10 +60,13 @@
 //     bound, which is coarser than fp32 where a window's gradients lie far
 //     below the level's largest, and still far inside the 2e-3 descriptor
 //     tolerance; the integer sums are exact and order-free.
-//   - The face scan takes its 20 normals from the kernel's parameters and
-//     finds the first argmax as a tree over index-ordered halves (the
+//   - The face scan takes its normals from the kernel's parameters,
+//     computes 10 dot products (the other 10 faces are their antipodes)
+//     and finds the first argmax as a tree over index-ordered halves (the
 //     strict > scan's result: ties go to the lowest face).
-//   - Everything else stays fp32, in the first design's order.
+//   - Everything else stays fp32, in the first design's order, except
+//     that the three barycentric weights share one division (b_i *
+//     (|g| / sum) in place of b_i / sum * |g|).
 //
 // What bounds it now: fp32 issue in the per-voxel arithmetic (about 260
 // operations per voxel in the sphere and bin cube), with the line scan
@@ -71,26 +74,20 @@
 // windows are read mostly from L1 and L2). At the 256^3 registration's
 // small buckets the host's launch overhead is of the same order.
 
-#include <cooperative_groups.h>
-#include <cooperative_groups/reduce.h>
 #include <cuda_runtime.h>
 #include <math.h>
-
-namespace cg = cooperative_groups;
 
 namespace {
 
 constexpr int kFaces = 20;
 constexpr int kHist = 768;
-constexpr int kThreads = 128;
+constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 constexpr int kPass = 2048;   // candidate voxels between fixed-point folds
 constexpr float kRound = 12582912.0f;     // 1.5 * 2^23
 constexpr float kBinEps = 1e-3f;          // bin-cube margin of a line's span
 constexpr float kFlat = 1e-6f;            // |d k / d x| below which a line
                                           // runs parallel to a cube face
-constexpr int kWarpHist = 0;      // variant 0: a private histogram per warp
-constexpr int kWarpCombine = 1;   // variant 1: combine equal bins, then add
 
 struct Params {
   float ux, uy, uz;              // voxel spacing (mm)
@@ -112,18 +109,6 @@ __device__ __forceinline__ void hat(float vb, int* lo, float* w0, float* w1) {
   *w1 = fr;
 }
 
-template <int kMode>
-__device__ __forceinline__ void hist_add(int* h, int bin, int v) {
-  if constexpr (kMode == kWarpHist) {
-    atomicAdd(h + bin, v);
-  } else {
-    const cg::coalesced_group here = cg::coalesced_threads();
-    const cg::coalesced_group same = cg::labeled_partition(here, bin);
-    const int s = cg::reduce(same, v, cg::plus<int>());
-    if (same.thread_rank() == 0) atomicAdd(h + bin, s);
-  }
-}
-
 // Clamped core start of one axis: clip(floor(c) - r, 1, n - 1 - core).
 __device__ __forceinline__ int core_start(float c, int r, int n, int core) {
   return min(max(static_cast<int>(floorf(c)) - r, 1), n - 1 - core);
@@ -136,13 +121,14 @@ struct Frame {
   float r0, r1, r2, r3, r4, r5, r6, r7, r8;
 };
 
-// Displacement (mm), |v|^2 and rotated bin coordinates of voxel (x, y, z)
+// |v|^2 (v the displacement in mm) and rotated bin coordinates of voxel
+// (x, y, z)
 // in unfused IEEE fp32, the plain version's rounding, so the sphere and
 // bin-cube masks agree voxel for voxel. True when the voxel lies in the
 // sphere and the bin cube.
 __device__ __forceinline__ bool voxel_frame(const Params& p, const Frame& f,
-                                            int x, int y, int z, float* v,
-                                            float* sq, float* vb) {
+                                            int x, int y, int z, float* sq,
+                                            float* vb) {
   const float vx = __fmul_rn(__fsub_rn(static_cast<float>(x), f.cx), p.ux);
   const float vy = __fmul_rn(__fsub_rn(static_cast<float>(y), f.cy), p.uy);
   const float vz = __fmul_rn(__fsub_rn(static_cast<float>(z), f.cz), p.uz);
@@ -158,9 +144,6 @@ __device__ __forceinline__ bool voxel_frame(const Params& p, const Frame& f,
   vb[0] = __fmul_rn(__fadd_rn(kx, p.half_width), p.bin_fctr);
   vb[1] = __fmul_rn(__fadd_rn(ky, p.half_width), p.bin_fctr);
   vb[2] = __fmul_rn(__fadd_rn(kz, p.half_width), p.bin_fctr);
-  v[0] = vx;
-  v[1] = vy;
-  v[2] = vz;
   return vb[0] >= 0.0f && vb[1] >= 0.0f && vb[2] >= 0.0f && vb[0] < 4.0f &&
          vb[1] < 4.0f && vb[2] < 4.0f;
 }
@@ -213,19 +196,29 @@ struct Normals {
   float n[kFaces * 3];
 };
 
+// Face 10 + i's normal is exactly minus face antipode(i)'s (the entry
+// point checks it), so its dot product is the exact negation.
+__host__ __device__ constexpr int antipode(int i) {
+  constexpr int a[10] = {5, 6, 7, 8, 9, 2, 1, 0, 4, 3};
+  return a[i];
+}
+
 // Face of the rotated gradient: the first argmax over the 20 normals of
 // the dot product, as a strict > scan in face order finds it, taken as a
 // tree over index-ordered halves (the higher-index side wins only when
-// strictly greater), so the 20 products are independent.
+// strictly greater), so the products are independent.
 __device__ __forceinline__ int best_face(const Normals& c, float gx,
                                          float gy, float gz) {
   float v[kFaces];
   int id[kFaces];
 #pragma unroll
-  for (int i = 0; i < kFaces; ++i) {
+  for (int i = 0; i < 10; ++i) {
     v[i] = c.n[3 * i] * gx + c.n[3 * i + 1] * gy + c.n[3 * i + 2] * gz;
     id[i] = i;
+    id[10 + i] = 10 + i;
   }
+#pragma unroll
+  for (int i = 0; i < 10; ++i) v[10 + i] = -v[antipode(i)];
 #pragma unroll
   for (int w = 1; w < kFaces; w *= 2) {
 #pragma unroll
@@ -240,7 +233,6 @@ __device__ __forceinline__ int best_face(const Normals& c, float gx,
 
 // Gradient, face, barycentric and hat weights of one voxel that passed
 // the geometry tests, added into histogram h.
-template <int kMode>
 __device__ __forceinline__ void accumulate(
     const Params& p, const Frame& f, const float* __restrict__ lv,
     size_t c, size_t lplane, int nx, float sq, const float* vb,
@@ -263,8 +255,8 @@ __device__ __forceinline__ void accumulate(
   const float b2 = m[6] * grx + m[7] * gry + m[8] * grz;
   const float bsum = b0 + b1 + b2;
   if (!(bsum > 0.0f)) return;
-  const float mag = sqrtf(mag2);
-  const float val[3] = {b0 / bsum * mag, b1 / bsum * mag, b2 / bsum * mag};
+  const float ib = sqrtf(mag2) / bsum;
+  const float val[3] = {b0 * ib, b1 * ib, b2 * ib};
   const int* vert = s_vert + 3 * face;
 
   int lz, ly, lx;
@@ -292,15 +284,14 @@ __device__ __forceinline__ void accumulate(
           // round(sw * val) as an int: adding 1.5 * 2^23 leaves the
           // rounded integer in the low mantissa bits (|sw * val| < 2^22).
           const float q = __fmaf_rn(sw, val[t], kRound);
-          hist_add<kMode>(h, cell + vert[t],
-                          __float_as_int(q) - __float_as_int(kRound));
+          atomicAdd(h + cell + vert[t],
+                    __float_as_int(q) - __float_as_int(kRound));
         }
       }
     }
   }
 }
 
-template <int kMode>
 __global__ void __launch_bounds__(kThreads) descrip_window_kernel(
     const float* __restrict__ level, int nz, int ny, int nx,
     const int* __restrict__ vol, const float* __restrict__ centers,
@@ -309,8 +300,7 @@ __global__ void __launch_bounds__(kThreads) descrip_window_kernel(
     const float* __restrict__ level_absmax,
     const float* __restrict__ tables, const int* __restrict__ face_idx,
     float* __restrict__ out) {
-  constexpr int kCopies = kMode == kWarpHist ? kWarps : 1;
-  __shared__ int ihist[kCopies * kHist];   // this pass's fixed-point sums
+  __shared__ int ihist[kWarps * kHist];   // this pass's fixed-point sums
   __shared__ float hist[kHist];
   __shared__ float s_vinv[kFaces * 9];
   __shared__ int s_vert[kFaces * 3];
@@ -322,7 +312,7 @@ __global__ void __launch_bounds__(kThreads) descrip_window_kernel(
   const int k = blockIdx.x;
   const int tid = threadIdx.x;
   const int lane = tid & 31, warp = tid >> 5;
-  for (int i = tid; i < kCopies * kHist; i += kThreads) ihist[i] = 0;
+  for (int i = tid; i < kWarps * kHist; i += kThreads) ihist[i] = 0;
   for (int i = tid; i < kHist; i += kThreads) hist[i] = 0.0f;
   for (int i = tid; i < kFaces * 3; i += kThreads) {
     s_vert[i] = face_idx[i];
@@ -340,25 +330,25 @@ __global__ void __launch_bounds__(kThreads) descrip_window_kernel(
   const size_t lplane = static_cast<size_t>(ny) * nx;
   const float* lv =
       level + static_cast<size_t>(vol ? vol[k] : 0) * nz * lplane;
-  int* h = ihist + (kMode == kWarpHist ? warp * kHist : 0);
+  int* h = ihist + warp * kHist;
   // Fixed-point scale, a power of two: a contribution is at most |g| <=
   // max|level| * |1 / units| (times the bary and hat weights, <= 1), and a
-  // histogram copy takes at most kPass / kCopies voxels a pass, one
+  // warp's histogram takes at most kPass / kWarps voxels a pass, one
   // contribution per bin each, so a pass's sums stay below 2^30 and one
   // scaled contribution below 2^30 / 512.
   const float inv_u = sqrtf(p.inv_ux * p.inv_ux + p.inv_uy * p.inv_uy +
                             p.inv_uz * p.inv_uz);
-  const float bound = 1.01f * level_absmax[0] * inv_u * (kPass / kCopies);
+  const float bound = 1.01f * level_absmax[0] * inv_u * (kPass / kWarps);
   int e2 = 0;
   frexpf(1073741824.0f / bound, &e2);
   const float scale =
       bound > 1e-30f && isfinite(bound) ? ldexpf(1.0f, e2 - 1) : 1.0f;
   const float inv_scale = 1.0f / scale;
 
-  // Rounds of kThreads core lines of this slab. Each thread cuts one line
+  // The slab's core lines, kThreads at a time. Each thread cuts one line
   // to its span (line_span); a block-wide prefix sum of the span lengths
-  // lays the round's candidate voxels out densely, so every thread tests
-  // one candidate per step whatever the line lengths.
+  // lays the candidate voxels out densely, so every thread tests one
+  // candidate per step whatever the line lengths.
   const int z_lo = blockIdx.y * planes;
   const int nlines = min(planes, cz - z_lo) * cy;
   for (int line0 = 0; line0 < nlines; line0 += kThreads) {
@@ -417,19 +407,17 @@ __global__ void __launch_bounds__(kThreads) descrip_window_kernel(
         const int pk = l_yz[a];
         const int z = sz + (pk >> 20), y = sy + ((pk >> 10) & 1023),
                   x = l_x0[a] + (v - l_off[a]);
-        float vv[3], sq, vb[3];
-        if (!voxel_frame(p, f, x, y, z, vv, &sq, vb)) continue;
-        accumulate<kMode>(p, f, lv,
-                          (static_cast<size_t>(z) * ny + y) * nx + x,
-                          lplane, nx, sq, vb, scale, nrm, s_vinv, s_vert,
-                          h);
+        float sq, vb[3];
+        if (!voxel_frame(p, f, x, y, z, &sq, vb)) continue;
+        accumulate(p, f, lv, (static_cast<size_t>(z) * ny + y) * nx + x,
+                   lplane, nx, sq, vb, scale, nrm, s_vinv, s_vert, h);
       }
       __syncthreads();
       // Fold the pass's fixed-point sums into the float histogram.
       for (int i = tid; i < kHist; i += kThreads) {
         long long sum = 0;
 #pragma unroll
-        for (int w = 0; w < kCopies; ++w) {
+        for (int w = 0; w < kWarps; ++w) {
           sum += ihist[w * kHist + i];
           ihist[w * kHist + i] = 0;
         }
@@ -462,8 +450,7 @@ __global__ void merge_slabs_kernel(const float* __restrict__ part, int slabs,
 // row, or null for volume 0; centers (num_rows, 3) f32 (z, y, x); rot
 // (num_rows, 9) f32 row-major R; radii (rz, ry, rx) and cores (cz, cy, cx)
 // the window half-extents and clamped core extents; rows split into
-// `slabs` z-slabs of `planes` core planes (slabs * planes >= cz); variant
-// 0 or 1 (the accumulation, see above); tables: 20x3 outward normals then
+// `slabs` z-slabs of `planes` core planes (slabs * planes >= cz); tables: 20x3 outward normals then
 // 20x9 inverse vertex matrices (f32); face_idx (20, 3) i32 histogram vertex
 // of each face corner; out (num_rows, 768) f32; scratch count * slabs *
 // 768 f32 (unused when slabs == 1). Returns the first CUDA error of the
@@ -471,16 +458,14 @@ __global__ void merge_slabs_kernel(const float* __restrict__ part, int slabs,
 extern "C" int sift3d_descrip_window(
     const float* level, int nz, int ny, int nx, const int* vol,
     const float* centers, const float* rot, int num_rows, int count, int rz,
-    int ry, int rx, int cz, int cy, int cx, int planes, int slabs,
-    int variant, float ux, float uy, float uz, float inv_ux, float inv_uy,
-    float inv_uz, float rad2, float sig2, float half_width, float bin_fctr,
+    int ry, int rx, int cz, int cy, int cx, int planes, int slabs, float ux,
+    float uy, float uz, float inv_ux, float inv_uy, float inv_uz, float rad2, float sig2, float half_width, float bin_fctr,
     float bary_eps, const float* normals, const float* level_absmax,
     const float* tables, const int* face_idx, float* out, float* scratch,
     void* stream) {
   if (num_rows <= 0) return 0;
   if (planes < 1 || slabs < 1 || slabs * planes < cz || cz > 1024 ||
-      cy > 1024 || cx > 1024 ||
-      (variant != kWarpHist && variant != kWarpCombine))
+      cy > 1024 || cx > 1024)
     return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   count = max(0, min(count, num_rows));
@@ -493,19 +478,17 @@ extern "C" int sift3d_descrip_window(
   if (count == 0) return 0;
   Normals nrm;
   for (int i = 0; i < kFaces * 3; ++i) nrm.n[i] = normals[i];
+  for (int i = 0; i < 10; ++i)
+    for (int j = 0; j < 3; ++j)
+      if (nrm.n[3 * (10 + i) + j] != -nrm.n[3 * antipode(i) + j])
+        return static_cast<int>(cudaErrorInvalidValue);
   const Params p{ux, uy, uz, inv_ux, inv_uy, inv_uz, rad2, sig2,
                  half_width, bin_fctr, bary_eps};
   float* dst = slabs > 1 ? scratch : out;
   const dim3 grid(count, slabs);
-  if (variant == kWarpHist) {
-    descrip_window_kernel<kWarpHist><<<grid, kThreads, 0, s>>>(
-        level, nz, ny, nx, vol, centers, rot, rz, ry, rx, cz, cy, cx, planes,
-        p, nrm, level_absmax, tables, face_idx, dst);
-  } else {
-    descrip_window_kernel<kWarpCombine><<<grid, kThreads, 0, s>>>(
-        level, nz, ny, nx, vol, centers, rot, rz, ry, rx, cz, cy, cx, planes,
-        p, nrm, level_absmax, tables, face_idx, dst);
-  }
+  descrip_window_kernel<<<grid, kThreads, 0, s>>>(
+      level, nz, ny, nx, vol, centers, rot, rz, ry, rx, cz, cy, cx, planes, p,
+      nrm, level_absmax, tables, face_idx, dst);
   const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess || slabs == 1) return static_cast<int>(err);
   merge_slabs_kernel<<<count, 256, 0, s>>>(scratch, slabs, out);

@@ -119,11 +119,6 @@ def match_plan(nq: int, nt: int) -> tuple[int, int, int]:
     return side, per, max(1, -(-t_tiles // per))
 
 
-def range_bounds(nt: int, side: int, per: int) -> list[int]:
-    """First target row of each range of ``match_plan``."""
-    return list(range(0, max(nt, 1), side * per))
-
-
 def _kernel_fn():
     fn = _build.load("match_stream").sift3d_match_top2
     if fn.argtypes is None:

@@ -27,9 +27,8 @@ zero.
   repeats), each (z, y) line is cut to its span in the sphere and the
   rotated bin cube (``line_span``) and the candidates are laid out densely
   over the threads, and bins are added as fixed-point integers with native
-  shared atomics into a private histogram per warp (``VARIANT`` 0; variant
-  1 combines equal bins across a warp's lanes into one histogram), folded
-  into fp32 every 2048 candidates.
+  shared atomics into a private histogram per warp, folded into fp32
+  every 2048 candidates.
 - On the H100 the kernel is bound by its fp32 arithmetic per voxel, not by
   device memory (see ``descrip_work`` for the counts); at small buckets by
   the launches' host overhead.
@@ -38,7 +37,6 @@ zero.
 from __future__ import annotations
 
 import ctypes
-import functools
 import math
 
 import numpy as np
@@ -60,21 +58,11 @@ NUM_SMS = 132
 # bin units, and the slope below which a line runs parallel to a face.
 BIN_EPS = 1e-3
 FLAT = 1e-6
-# The kernel's accumulation: 0 a private histogram per warp, 1 equal bins
-# combined across a warp's lanes before one atomic on the block's histogram
-# (both timed by ``chip_smoke.py``; 0 is the faster on the H100).
-VARIANT = 0
 
 
 def geometry_constants(units, sigma: float, rad: float) -> dict:
     """fp32 constants shared bit for bit by the kernel and the plain
     version (rounded as the JAX package rounds them)."""
-    return _geometry_constants(tuple(float(u) for u in units), float(sigma),
-                               float(rad))
-
-
-@functools.lru_cache(maxsize=256)
-def _geometry_constants(units, sigma: float, rad: float) -> dict:
     rad32 = np.float32(rad)
     sig32 = np.float32(sigma)
     half_width = rad32 / np.float32(math.sqrt(2))
@@ -256,17 +244,32 @@ def _kernel_fn():
     fn = _build.load("descrip_window").sift3d_descrip_window
     if fn.argtypes is None:
         P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        fn.argtypes = [P, I, I, I, P, P, P, I, I, I, I, I, I, I, I, I, I, I,
-                       F, F, F, F, F, F, F, F, F, F, F, P, P, P, P, P, P,
-                       P]
+        fn.argtypes = [P, I, I, I, P, P, P, I, I, I, I, I, I, I, I, I, I,
+                       F, F, F, F, F, F, F, F, F, F, F, P, P, P, P, P, P, P]
         fn.restype = ctypes.c_int
     return fn
 
 
-def _launch(level, centers, R, count: int, radii, cores, units,
-            sigma: float, rad: float, vol=None,
-            variant: int = VARIANT) -> torch.Tensor:
-    """One kernel launch (rows x slabs blocks, then the slab merge)."""
+def descrip_window(level, centers, R, count: int, radii, cores, units,
+                   sigma: float, rad: float, vol=None) -> torch.Tensor:
+    """Raw (K, 768) descriptor histograms of one level bucket.
+
+    Args:
+      level: (nz, ny, nx) f32 Gaussian pyramid level, or (B, nz, ny, nx)
+        with ``vol``.
+      centers: (K, 3) keypoint centers (z, y, x), level voxel coords.
+      R: (K, 3, 3) rotations.
+      count: number of real rows; rows >= count come back as zeros.
+      radii, cores: (z, y, x) window half-extents and clamped core extents.
+      units: (ux, uy, uz); sigma, rad: descriptor Gaussian width and
+        window radius (mm).
+      vol: optional (K,) volume index of each row.
+    """
+    if level.device.type == "cpu":
+        return descrip_window_plain(level, centers, R, count, radii, cores,
+                                    units, sigma, rad, vol)
+    if level.device.type != "cuda":
+        raise ValueError(f"descrip_window: unsupported device {level.device}")
     if level.dtype != torch.float32 or level.ndim not in (3, 4):
         raise ValueError("descrip_window: level must be a 3-D or 4-D float32 "
                          "tensor")
@@ -295,7 +298,7 @@ def _launch(level, centers, R, count: int, radii, cores, units,
     err = _kernel_fn()(
         level.data_ptr(), *level.shape[1:],
         None if vol is None else vol.data_ptr(), centers.data_ptr(),
-        rot.data_ptr(), K, n, *radii, *cores, planes, slabs, variant,
+        rot.data_ptr(), K, n, *radii, *cores, planes, slabs,
         g["ux"], g["uy"], g["uz"], g["inv_ux"], g["inv_uy"], g["inv_uz"],
         g["rad2"], g["sig2"], g["half_width"], g["bin_fctr"], g["bary_eps"],
         normals.ctypes.data, absmax.data_ptr(), tables.data_ptr(),
@@ -303,31 +306,6 @@ def _launch(level, centers, R, count: int, radii, cores, units,
         out.data_ptr(), buf[K * DESC_NUMEL:].data_ptr() if scratch else None,
         torch.cuda.current_stream(level.device).cuda_stream)
     _build.check(err, "descrip_window launch")
-    return out
-
-
-def descrip_window(level, centers, R, count: int, radii, cores, units,
-                   sigma: float, rad: float, vol=None) -> torch.Tensor:
-    """Raw (K, 768) descriptor histograms of one level bucket.
-
-    Args:
-      level: (nz, ny, nx) f32 Gaussian pyramid level, or (B, nz, ny, nx)
-        with ``vol``.
-      centers: (K, 3) keypoint centers (z, y, x), level voxel coords.
-      R: (K, 3, 3) rotations.
-      count: number of real rows; rows >= count come back as zeros.
-      radii, cores: (z, y, x) window half-extents and clamped core extents.
-      units: (ux, uy, uz); sigma, rad: descriptor Gaussian width and
-        window radius (mm).
-      vol: optional (K,) volume index of each row.
-    """
-    if level.device.type == "cpu":
-        return descrip_window_plain(level, centers, R, count, radii, cores,
-                                    units, sigma, rad, vol)
-    if level.device.type != "cuda":
-        raise ValueError(f"descrip_window: unsupported device {level.device}")
-    out = _launch(level, centers, R, count, radii, cores, units, sigma, rad,
-                  vol)
     descrip_window.launches += 1
     return out
 

@@ -167,11 +167,10 @@ def test_match_kernel_matches_plain_and_dense(cuda):
                                   m_dense.cpu().numpy())
 
 
-@pytest.mark.parametrize("variant", [0, 1])
-def test_descrip_window_kernel_slab_split(cuda, variant):
+def test_descrip_window_kernel_slab_split(cuda):
     """One row with a window of a 256^3 registration's finest level (rad
     about 35 voxels): the launch splits it into z-slabs whose partials are
-    summed by the merge pass; both accumulation variants against plain."""
+    summed by the merge pass; against the plain version."""
     rng = np.random.default_rng(6)
     shape = (80, 84, 78)
     level = torch.as_tensor(_level(rng, shape))
@@ -187,16 +186,14 @@ def test_descrip_window_kernel_slab_split(cuda, variant):
                         dtype=torch.float32).expand(2, 3, 3)
     geom = (radii, cores, units, sigma, rad)
     want = cuda_window.descrip_window_plain(level, centers, R, 1, *geom)
-    got = cuda_window._launch(level.to(cuda), centers.to(cuda), R.to(cuda),
-                              1, *geom, variant=variant)
+    before = cuda_window.descrip_window.launches
+    got = cuda_window.descrip_window(level.to(cuda), centers.to(cuda),
+                                     R.to(cuda), 1, *geom)
     torch.cuda.synchronize()
+    assert cuda_window.descrip_window.launches == before + 1
     got = got.cpu()
     assert torch.all(got[1:] == 0)
     assert (got - want).abs().max() <= 1e-4 * want.abs().max()
-    before = cuda_window.descrip_window.launches
-    cuda_window.descrip_window(level.to(cuda), centers.to(cuda), R.to(cuda),
-                               1, *geom)
-    assert cuda_window.descrip_window.launches == before + 1
 
 
 def test_match_kernel_split_ranges(cuda):
@@ -214,7 +211,7 @@ def test_match_kernel_split_ranges(cuda):
     d2[2000:2010] = d2[0:70:7]        # duplicates of planted targets
     d1[2400:2405] = d1[:5]
     side, per, ranges = cuda_match.match_plan(n1, n2)
-    bounds = cuda_match.range_bounds(n2, side, per)
+    bounds = list(range(0, n2, side * per))
     assert side == 128 and ranges > 1
     assert np.searchsorted(bounds, 63, "right") != \
         np.searchsorted(bounds, 2009, "right")

@@ -18,7 +18,7 @@ from sift3d_tpu.ops.pallas_match import nn_match_streamed as jstreamed
 from sift3d_tpu_torch.features.match import nn_match, ssd_matrix
 from sift3d_tpu_torch.ops.cuda_match import (NUM_SMS, match_plan,
                                              merge_top2, nn_match_streamed,
-                                             range_bounds, reduce_one_way,
+                                             reduce_one_way,
                                              reduce_one_way_plain)
 
 torch.set_num_threads(1)
@@ -190,5 +190,5 @@ def test_match_plan_fills_card(nq, nt):
         assert q_tiles * ranges >= 2 * NUM_SMS
     else:
         assert ranges == max(t_tiles, 1)
-    bounds = range_bounds(nt, side, per)
-    assert len(bounds) == ranges and bounds[0] == 0
+    # Range r starts at target row r * side * per.
+    assert len(range(0, max(nt, 1), side * per)) == ranges
