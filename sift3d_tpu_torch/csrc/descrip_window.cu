@@ -68,9 +68,9 @@
 //     that the three barycentric weights share one division (b_i *
 //     (|g| / sum) in place of b_i / sum * |g|).
 //
-// What bounds it now: fp32 issue in the per-voxel arithmetic (about 260
-// operations per voxel in the sphere and bin cube), with the line scan
-// and the shared atomics behind it; device memory is not the limit (the
+// What bounds it now: fp32 instruction throughput in the per-voxel
+// arithmetic (about 260 operations per voxel in the sphere and bin cube),
+// with the line scan and the shared atomics behind it; device memory is not the limit (the
 // windows are read mostly from L1 and L2). At the 256^3 registration's
 // small buckets the host's launch overhead is of the same order.
 

@@ -40,10 +40,10 @@
 //     TF32, no tensor cores, so best and second are bitwise those of the
 //     first design and indices equal an IEEE fp32 dot product's.
 //
-// What bounds it now: fp32 FMA issue in the 128 x 128 shape (one direction
-// is Nq * Nt * 768 FMAs against (Nq + Nt) * 768 * 4 bytes of descriptors,
-// far above the fp32 ridge point), and at the main path's ~150 x 150 the
-// two launches and the 768-long dependent FMA chains.
+// What bounds it now: fp32 FMA throughput in the 128 x 128 shape (one
+// direction is Nq * Nt * 768 FMAs against (Nq + Nt) * 768 * 4 bytes of
+// descriptors, far above the fp32 ridge point), and at the main path's
+// ~150 x 150 the two launches and the 768-long dependent FMA chains.
 
 #include <cuda_runtime.h>
 #include <math.h>
