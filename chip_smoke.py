@@ -546,20 +546,20 @@ def main() -> int:
     from sift3d_tpu_torch.ops.cuda_orient import (orient_terms,
                                                   orient_terms_plain,
                                                   orient_work)
-    from sift3d_tpu_torch.ops.cuda_window import (descrip_active,
-                                                  descrip_window,
+    from sift3d_tpu_torch.ops.cuda_window import (descrip_window,
                                                   descrip_window_plain,
                                                   descrip_work, slab_plan)
 
     def k1_times(args, reps):
-        nb, ops = work_sum(descrip_work, [a for _, a in args])
-        active, box = work_sum(descrip_active, [a for _, a in args])
+        nb, ops, contrib, active, box = work_sum(descrip_work,
+                                                 [a for _, a in args])
         b, by = bound_ms(nb, ops)
         return dict(
             launches=len(args), rows=sum(a[3] for _, a in args),
             blocks_per_launch=[a[3] * slab_plan(a[3], a[5][0])[1]
                                for _, a in args],
             active_voxels=active, box_voxels=box, active_share=active / box,
+            contributing_voxels=contrib, contributing_share=contrib / box,
             ms=cuda_ms(lambda: [descrip_window(*a) for _, a in args], reps),
             plain_ms=cuda_ms(lambda: [descrip_window_plain(*a)
                                       for _, a in args], 1),
@@ -574,7 +574,9 @@ def main() -> int:
         blk = t["blocks_per_launch"]
         print(f"descrip_window per {label} ({t['launches']} launches, "
               f"{t['rows']} rows, {min(blk)}-{max(blk)} blocks a launch, "
-              f"active voxels {t['active_share']:.4f} of the boxes): "
+              f"voxels in the sphere and bin cube {t['active_share']:.4f} "
+              f"of the boxes, adding to a bin "
+              f"{t['contributing_share']:.4f}): "
               f"{t['ms']:.4f} ms, plain "
               f"{t['plain_ms']:.1f} ms, bound {t['bound_ms']:.4f} ms "
               f"({t['bound_by']}) [{card}]")
@@ -692,7 +694,9 @@ def main() -> int:
              blocks_per_launch_256=k1_256["blocks_per_launch"],
              blocks_per_launch_batch=k1_batch["blocks_per_launch"],
              active_share_256=k1_256["active_share"],
-             active_share_batch=k1_batch["active_share"]),
+             active_share_batch=k1_batch["active_share"],
+             contributing_share_256=k1_256["contributing_share"],
+             contributing_share_batch=k1_batch["contributing_share"]),
         dict(name="match_stream", route="cuda",
              source="sift3d_tpu_torch/csrc/match_stream.cu",
              replaces="sift3d_tpu/ops/pallas_match.py:63",

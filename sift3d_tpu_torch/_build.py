@@ -18,6 +18,10 @@ from pathlib import Path
 
 SRC_DIR = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "kernels"
+# The H100's SMs: the descriptor-window and matcher kernels split their
+# grids so that a launch holds at least twice as many blocks where the
+# shapes allow it.
+NUM_SMS = 132
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

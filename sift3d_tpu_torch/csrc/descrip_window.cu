@@ -53,13 +53,16 @@
 //     histogram per warp. (Lanes that hit the same bin first combining
 //     their values, then one atomic on a single histogram per block, was
 //     measured and is several times slower.)
-//     The scale is a power of two from max|level| (a device scalar, no
-//     host sync) such that a pass of 2048 candidates cannot overflow; after
-//     each pass the integer sums fold into a float histogram. Each
-//     contribution is rounded to a step of 2^-21 of the level's gradient
-//     bound, which is coarser than fp32 where a window's gradients lie far
-//     below the level's largest, and still far inside the 2e-3 descriptor
-//     tolerance; the integer sums are exact and order-free.
+//     The scale is a power of two from the range (max - min) of the values
+//     the block's gradients read (its slab of the window with the halo,
+//     one min/max pass before the candidates), such that a pass of 2048
+//     candidates cannot overflow; after each pass the integer sums fold
+//     into a float histogram. Each contribution is rounded to a step of
+//     2^-21 to 2^-22 of the largest gradient the slab could hold, so the
+//     error follows the window's own contrast, not the level's; the
+//     integer sums are exact and order-free. This is the one place the
+//     kernel leaves fp32 (the card test of a dark window inside a bright
+//     level holds it to the descriptor tolerance).
 //   - The face scan takes its normals from the kernel's parameters,
 //     computes 10 dot products (the other 10 faces are their antipodes)
 //     and finds the first argmax as a tree over index-ordered halves (the
@@ -69,8 +72,9 @@
 //     (|g| / sum) in place of b_i / sum * |g|).
 //
 // What bounds it now: fp32 instruction throughput in the per-voxel
-// arithmetic (about 260 operations per voxel in the sphere and bin cube),
-// with the line scan and the shared atomics behind it; device memory is not the limit (the
+// arithmetic (216 operations per voxel that adds to the histogram, as
+// ops/cuda_window.py counts them), with the line scan, the min/max pass and
+// the shared atomics behind it; device memory is not the limit (the
 // windows are read mostly from L1 and L2). At the 256^3 registration's
 // small buckets the host's launch overhead is of the same order.
 
@@ -297,7 +301,6 @@ __global__ void __launch_bounds__(kThreads) descrip_window_kernel(
     const int* __restrict__ vol, const float* __restrict__ centers,
     const float* __restrict__ rot, int rz, int ry, int rx, int cz, int cy,
     int cx, int planes, Params p, Normals nrm,
-    const float* __restrict__ level_absmax,
     const float* __restrict__ tables, const int* __restrict__ face_idx,
     float* __restrict__ out) {
   __shared__ int ihist[kWarps * kHist];   // this pass's fixed-point sums
@@ -308,6 +311,7 @@ __global__ void __launch_bounds__(kThreads) descrip_window_kernel(
   __shared__ int l_x0[kThreads];        // first x and packed (dz, dy)
   __shared__ int l_yz[kThreads];
   __shared__ int warp_sum[kWarps];
+  __shared__ float warp_lo[kWarps], warp_hi[kWarps];
 
   const int k = blockIdx.x;
   const int tid = threadIdx.x;
@@ -331,26 +335,57 @@ __global__ void __launch_bounds__(kThreads) descrip_window_kernel(
   const float* lv =
       level + static_cast<size_t>(vol ? vol[k] : 0) * nz * lplane;
   int* h = ihist + warp * kHist;
+  const int z_lo = blockIdx.y * planes;
+  const int nplanes = min(planes, cz - z_lo);
+
+  // Range of the values the slab's gradients read: its core planes and
+  // lines with the one-voxel halo, a warp per line.
+  float lo = INFINITY, hi = -INFINITY;
+  const int hy = cy + 2, hx = cx + 2;
+  for (int line = warp; line < (nplanes + 2) * hy; line += kWarps) {
+    const int lz = line / hy, ly = line - lz * hy;
+    const size_t z = sz + z_lo - 1 + lz, y = sy - 1 + ly;
+    const float* row = lv + (z * ny + y) * nx + sx - 1;
+    for (int x = lane; x < hx; x += 32) {
+      lo = fminf(lo, row[x]);
+      hi = fmaxf(hi, row[x]);
+    }
+  }
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) {
+    lo = fminf(lo, __shfl_xor_sync(0xffffffffu, lo, o));
+    hi = fmaxf(hi, __shfl_xor_sync(0xffffffffu, hi, o));
+  }
+  if (lane == 0) {
+    warp_lo[warp] = lo;
+    warp_hi[warp] = hi;
+  }
+  __syncthreads();
+#pragma unroll
+  for (int w = 0; w < kWarps; ++w) {
+    lo = fminf(lo, warp_lo[w]);
+    hi = fmaxf(hi, warp_hi[w]);
+  }
   // Fixed-point scale, a power of two: a contribution is at most |g| <=
-  // max|level| * |1 / units| (times the bary and hat weights, <= 1), and a
-  // warp's histogram takes at most kPass / kWarps voxels a pass, one
-  // contribution per bin each, so a pass's sums stay below 2^30 and one
-  // scaled contribution below 2^30 / 512.
+  // (max - min) / 2 * |1 / units| (times the bary and hat weights, <= 1;
+  // 1.01 covers the rounding), and a warp's histogram takes at most
+  // kPass / kWarps voxels a pass, one contribution per bin each, so a
+  // pass's sums stay below 2^30 and one scaled contribution below 2^22,
+  // as the rounding in accumulate needs.
   const float inv_u = sqrtf(p.inv_ux * p.inv_ux + p.inv_uy * p.inv_uy +
                             p.inv_uz * p.inv_uz);
-  const float bound = 1.01f * level_absmax[0] * inv_u * (kPass / kWarps);
+  const float bound = 1.01f * 0.5f * (hi - lo) * inv_u * (kPass / kWarps);
   int e2 = 0;
-  frexpf(1073741824.0f / bound, &e2);
+  frexpf(bound, &e2);   // bound < 2^e2 (e2 = 0 for a flat slab)
   const float scale =
-      bound > 1e-30f && isfinite(bound) ? ldexpf(1.0f, e2 - 1) : 1.0f;
+      isfinite(bound) ? ldexpf(1.0f, min(30 - e2, 126)) : 1.0f;
   const float inv_scale = 1.0f / scale;
 
   // The slab's core lines, kThreads at a time. Each thread cuts one line
   // to its span (line_span); a block-wide prefix sum of the span lengths
   // lays the candidate voxels out densely, so every thread tests one
   // candidate per step whatever the line lengths.
-  const int z_lo = blockIdx.y * planes;
-  const int nlines = min(planes, cz - z_lo) * cy;
+  const int nlines = nplanes * cy;
   for (int line0 = 0; line0 < nlines; line0 += kThreads) {
     const int line = line0 + tid;
     int len = 0, x_lo = 0, packed_yz = 0;
@@ -450,19 +485,20 @@ __global__ void merge_slabs_kernel(const float* __restrict__ part, int slabs,
 // row, or null for volume 0; centers (num_rows, 3) f32 (z, y, x); rot
 // (num_rows, 9) f32 row-major R; radii (rz, ry, rx) and cores (cz, cy, cx)
 // the window half-extents and clamped core extents; rows split into
-// `slabs` z-slabs of `planes` core planes (slabs * planes >= cz); tables: 20x3 outward normals then
-// 20x9 inverse vertex matrices (f32); face_idx (20, 3) i32 histogram vertex
-// of each face corner; out (num_rows, 768) f32; scratch count * slabs *
-// 768 f32 (unused when slabs == 1). Returns the first CUDA error of the
-// launches.
+// `slabs` z-slabs of `planes` core planes (slabs * planes >= cz); normals
+// (20, 3) f32 outward face normals in host memory; tables: the same normals
+// then 20x9 inverse vertex matrices (f32, device); face_idx (20, 3) i32
+// histogram vertex of each face corner; out (num_rows, 768) f32; scratch
+// count * slabs * 768 f32 (unused when slabs == 1). Returns the first CUDA
+// error of the launches.
 extern "C" int sift3d_descrip_window(
     const float* level, int nz, int ny, int nx, const int* vol,
     const float* centers, const float* rot, int num_rows, int count, int rz,
     int ry, int rx, int cz, int cy, int cx, int planes, int slabs, float ux,
-    float uy, float uz, float inv_ux, float inv_uy, float inv_uz, float rad2, float sig2, float half_width, float bin_fctr,
-    float bary_eps, const float* normals, const float* level_absmax,
-    const float* tables, const int* face_idx, float* out, float* scratch,
-    void* stream) {
+    float uy, float uz, float inv_ux, float inv_uy, float inv_uz, float rad2,
+    float sig2, float half_width, float bin_fctr, float bary_eps,
+    const float* normals, const float* tables, const int* face_idx,
+    float* out, float* scratch, void* stream) {
   if (num_rows <= 0) return 0;
   if (planes < 1 || slabs < 1 || slabs * planes < cz || cz > 1024 ||
       cy > 1024 || cx > 1024)
@@ -488,7 +524,7 @@ extern "C" int sift3d_descrip_window(
   const dim3 grid(count, slabs);
   descrip_window_kernel<<<grid, kThreads, 0, s>>>(
       level, nz, ny, nx, vol, centers, rot, rz, ry, rx, cz, cy, cx, planes, p,
-      nrm, level_absmax, tables, face_idx, dst);
+      nrm, tables, face_idx, dst);
   const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess || slabs == 1) return static_cast<int>(err);
   merge_slabs_kernel<<<count, 256, 0, s>>>(scratch, slabs, out);

@@ -37,13 +37,11 @@ import ctypes
 import torch
 
 from .. import _build
+from .._build import NUM_SMS
 from ..features.match import _consistent, _ratio_accept
 
 # Targets per block of the plain version (the TPU kernel's block).
 PLAIN_BLOCK = 512
-# The H100's SMs; the kernel's grid should hold at least twice as many
-# blocks where the shapes allow it.
-NUM_SMS = 132
 
 
 def _top2_rows(d: torch.Tensor):

@@ -28,7 +28,9 @@ zero.
   rotated bin cube (``line_span``) and the candidates are laid out densely
   over the threads, and bins are added as fixed-point integers with native
   shared atomics into a private histogram per warp, folded into fp32
-  every 2048 candidates.
+  every 2048 candidates. The fixed-point step of a block follows the range
+  of the values its slab reads (a min/max pass over the slab), so a dark
+  window in a bright level is summed as finely as a bright one.
 - On the H100 the kernel is bound by its fp32 arithmetic per voxel, not by
   device memory (see ``descrip_work`` for the counts); at small buckets by
   the launches' host overhead.
@@ -43,6 +45,7 @@ import numpy as np
 import torch
 
 from .. import _build
+from .._build import NUM_SMS
 from ..config import (BARY_EPS, DESC_NUM_TOTAL_HIST, DESC_NUMEL, NHIST_PER_DIM)
 from ..features.windows import (batch_view, gather_windows, window_gradients,
                                 window_starts, window_union)
@@ -51,9 +54,6 @@ from .geometry import face_solve_tables, face_tables, icos_hist_bin, vertex_weig
 # Window voxels per chunk of the plain version (bounds its temporaries:
 # about 0.5 KB per voxel).
 _CHUNK_VOXELS = 1 << 22
-# The H100's SMs; a launch should hold at least twice as many blocks where
-# the rows and core planes allow it.
-NUM_SMS = 132
 # Margins of the kernel's line spans (``line_span``): the bin-cube cut in
 # bin units, and the slope below which a line runs parallel to a face.
 BIN_EPS = 1e-3
@@ -102,21 +102,25 @@ def _window_frame(shape, centers, R, radii, cores, g):
     return starts, sq, vb, in_sphere
 
 
-def _plain_chunk(level, vol, centers, R, radii, cores, units, g,
+def _chunk_terms(level, vol, centers, R, radii, cores, units, g,
                  z_range=None):
-    """Raw histograms (C, 768) of a chunk of keypoints, over the core
-    planes [z0, z1) of ``z_range`` when it is given."""
+    """Per-voxel terms of a chunk of C rows over the core planes [z0, z1)
+    of ``z_range`` (all planes when None): bin coordinates (vbx, vby, vbz),
+    rotated weighted gradients (C, V, 3), their face, barycentrics and
+    ``ok`` from ``icos_hist_bin``, and the geometry mask (C, V) of the
+    voxels in the sphere and the rotated bin cube."""
     C = centers.shape[0]
     V = cores[0] * cores[1] * cores[2]
-    starts, sq, (vbx, vby, vbz), in_sphere = _window_frame(
+    starts, sq, vb, in_sphere = _window_frame(
         level.shape[1:], centers, R, radii, cores, g)
     if z_range is not None:
         iz = torch.arange(cores[0], device=level.device)
         in_sphere = in_sphere & ((iz >= z_range[0]) &
                                  (iz < z_range[1]))[None, :, None, None]
     nh = float(NHIST_PER_DIM)
-    inside = ((vbx >= 0) & (vby >= 0) & (vbz >= 0) &
-              (vbx < nh) & (vby < nh) & (vbz < nh))
+    inside = torch.ones_like(in_sphere)
+    for v in vb:
+        inside &= (v >= 0) & (v < nh)
 
     win = gather_windows(level, vol, starts, cores)
     gx, gy, gz = window_gradients(win, units)
@@ -127,9 +131,19 @@ def _plain_chunk(level, vol, centers, R, radii, cores, units, g,
         [Rc[i][0] * gx + Rc[i][1] * gy + Rc[i][2] * gz for i in range(3)],
         dim=-1).reshape(C, V, 3)
     face, bary, ok = icos_hist_bin(grad_rot)
+    return vb, grad_rot, face, bary, ok, (in_sphere & inside).reshape(C, V)
+
+
+def _plain_chunk(level, vol, centers, R, radii, cores, units, g,
+                 z_range=None):
+    """Raw histograms (C, 768) of a chunk of keypoints, over the core
+    planes [z0, z1) of ``z_range`` when it is given."""
+    C = centers.shape[0]
+    V = cores[0] * cores[1] * cores[2]
+    (vbx, vby, vbz), grad_rot, face, bary, ok, geom = _chunk_terms(
+        level, vol, centers, R, radii, cores, units, g, z_range)
     mag = torch.sqrt(torch.sum(grad_rot * grad_rot, -1))
-    total_mask = (in_sphere & inside).reshape(C, V) & ok
-    Gmat = vertex_weights(face, bary) * (mag * total_mask)[..., None]
+    Gmat = vertex_weights(face, bary) * (mag * (geom & ok))[..., None]
 
     # Trilinear spatial weights over the 4^3 histogram grid
     # (SIFT3D_desc_acc_interp, sift.c:1732-1755).
@@ -245,7 +259,7 @@ def _kernel_fn():
     if fn.argtypes is None:
         P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         fn.argtypes = [P, I, I, I, P, P, P, I, I, I, I, I, I, I, I, I, I,
-                       F, F, F, F, F, F, F, F, F, F, F, P, P, P, P, P, P, P]
+                       F, F, F, F, F, F, F, F, F, F, F, P, P, P, P, P, P]
         fn.restype = ctypes.c_int
     return fn
 
@@ -293,16 +307,13 @@ def descrip_window(level, centers, R, count: int, radii, cores, units,
         return out
     normals, tables, face_idx = _tables(level.device)
     g = geometry_constants(units, sigma, rad)
-    # Bounds the kernel's fixed-point scale (no host sync).
-    absmax = torch.linalg.vector_norm(level, float("inf"))
     err = _kernel_fn()(
         level.data_ptr(), *level.shape[1:],
         None if vol is None else vol.data_ptr(), centers.data_ptr(),
         rot.data_ptr(), K, n, *radii, *cores, planes, slabs,
         g["ux"], g["uy"], g["uz"], g["inv_ux"], g["inv_uy"], g["inv_uz"],
         g["rad2"], g["sig2"], g["half_width"], g["bin_fctr"], g["bary_eps"],
-        normals.ctypes.data, absmax.data_ptr(), tables.data_ptr(),
-        face_idx.data_ptr(),
+        normals.ctypes.data, tables.data_ptr(), face_idx.data_ptr(),
         out.data_ptr(), buf[K * DESC_NUMEL:].data_ptr() if scratch else None,
         torch.cuda.current_stream(level.device).cuda_stream)
     _build.check(err, "descrip_window launch")
@@ -312,52 +323,66 @@ def descrip_window(level, centers, R, count: int, radii, cores, units,
 
 descrip_window.launches = 0
 
-# fp32 operations the kernel does for a voxel that passes the sphere and
-# bin-cube tests (displacement rotation and bin coordinates 21, Gaussian
-# weight 4, gradient 12, gradient rotation 15, |g|^2 5, face scan 100,
-# barycentrics 17, |g| and scaling 7, hat weights 6, 24 weighted updates
-# 72), and for every other voxel of the box (displacement and |v|^2 11).
-OPS_ACTIVE_VOXEL = 259
-OPS_BOX_VOXEL = 11
+# The fp32 operations the function needs (each add, multiply, comparison,
+# division, sqrt, exp or floor counts one; constants of a call or a row
+# are folded; what a line's voxels share is counted once a line):
+# - a core line of a box: its span in the sphere and the rotated bin cube
+#   (line_span: y and z displacements 4, y^2 + z^2 and its test 4, the
+#   half chord 3, per bin axis the line's offset, two crossings and the
+#   clamps 9, the span's ends 4);
+# - a voxel of the span in the sphere and the bin cube, up to the |g|^2
+#   test: x displacement and |v|^2 4, sphere test 1, rotation and bin
+#   coordinates 12, bin-cube tests 6, Gaussian weight 2, weighted gradient
+#   9, its rotation 15, |g|^2 and its test 6;
+# - a voxel that also adds to the histogram (icos_hist_bin's ``ok``): the
+#   face scan 69 (10 dot products, the other 10 faces being their
+#   antipodes, and 19 comparisons), barycentrics, their sum and test 18,
+#   |g| / sum and the three weights 5, hat weights 9, the 8 spatial
+#   weights 12, 24 weighted bin updates 48.
+# Voxels of the box outside the span need nothing.
+OPS_LINE = 42
+OPS_GEOMETRY_VOXEL = 55
+OPS_CONTRIB_VOXEL = OPS_GEOMETRY_VOXEL + 161
 
 
 def descrip_active(level, centers, R, count: int, radii, cores, units,
-                   sigma: float, rad: float, vol=None) -> tuple[int, int]:
-    """(voxels that pass the sphere and bin-cube tests, voxels of the
-    boxes) of one ``descrip_window`` call's rows below ``count``."""
-    level, _ = batch_view(level, centers.shape[0], vol)
+                   sigma: float, rad: float, vol=None) -> tuple[int, int, int]:
+    """(voxels that add to a histogram, voxels that pass the sphere and
+    bin-cube tests, voxels of the boxes) of one ``descrip_window`` call's
+    rows below ``count``."""
+    level, vol = batch_view(level, centers.shape[0], vol)
     n = min(int(count), centers.shape[0])
     g = geometry_constants(units, sigma, rad)
-    nh = float(NHIST_PER_DIM)
     box = cores[0] * cores[1] * cores[2]
-    active = 0
+    contrib = geometry = 0
     chunk = max(1, _CHUNK_VOXELS // box)
     for k0 in range(0, n, chunk):
         k1 = min(n, k0 + chunk)
-        _, _, (vbx, vby, vbz), in_sphere = _window_frame(
-            level.shape[1:], centers[k0:k1].float(), R[k0:k1].float(),
-            radii, cores, g)
-        inside = ((vbx >= 0) & (vby >= 0) & (vbz >= 0) &
-                  (vbx < nh) & (vby < nh) & (vbz < nh))
-        active += int((in_sphere & inside).sum())
-    return active, n * box
+        *_, ok, geom = _chunk_terms(level, vol[k0:k1], centers[k0:k1].float(),
+                                    R[k0:k1].float(), radii, cores, units, g)
+        contrib += int((geom & ok).sum())
+        geometry += int(geom.sum())
+    return contrib, geometry, n * box
 
 
 def descrip_work(level, centers, R, count: int, radii, cores, units,
-                 sigma: float, rad: float, vol=None) -> tuple[int, int]:
+                 sigma: float, rad: float, vol=None) -> tuple[int, ...]:
     """(bytes, fp32 operations) that one ``descrip_window`` call needs on
-    these inputs: the union of the rows' windows (core + halo) read once
-    per volume (windows of nearby keypoints overlap), each row's inputs
-    read and its histogram written once; the operations counted from the
-    voxels of each box that pass the sphere and bin-cube tests."""
+    these inputs, followed by ``descrip_active``'s three voxel counts. The
+    bytes: the union of the rows' windows (core + halo) read once per
+    volume (windows of nearby keypoints overlap), each row's inputs read
+    and its histogram written once; the operations: ``OPS_*`` over the
+    rows' core lines and the voxels that pass the tests."""
     level, vol = batch_view(level, centers.shape[0], vol)
     n = min(int(count), centers.shape[0])
     starts = window_starts(level.shape[1:], torch.floor(centers[:n]).long(),
                            radii, cores)
     covered = window_union(level.shape, vol[:n], starts, cores)
-    active, boxes = descrip_active(level, centers, R, count, radii, cores,
-                                   units, sigma, rad)
+    contrib, geometry, boxes = descrip_active(
+        level, centers, R, count, radii, cores, units, sigma, rad, vol)
     nbytes = (4 * covered + n * 4 * (1 + 3 + 3 + 9) +
               centers.shape[0] * DESC_NUMEL * 4)
-    ops = active * OPS_ACTIVE_VOXEL + (boxes - active) * OPS_BOX_VOXEL
-    return nbytes, ops
+    ops = (n * cores[0] * cores[1] * OPS_LINE +
+           geometry * OPS_GEOMETRY_VOXEL +
+           contrib * (OPS_CONTRIB_VOXEL - OPS_GEOMETRY_VOXEL))
+    return nbytes, ops, contrib, geometry, boxes

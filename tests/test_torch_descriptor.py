@@ -134,8 +134,8 @@ def test_descrip_work_counts_window_union():
     centers = torch.full((2, 3), 10.0)
     R = torch.eye(3).expand(2, 3, 3)
     args = ((3, 3, 3), (8, 8, 8), UNITS, 1.0, 4.0)
-    b1, o1 = descrip_work(level, centers[:1], R[:1], 1, *args)
-    b2, o2 = descrip_work(level, centers, R, 2, *args)
+    b1, o1, *_ = descrip_work(level, centers[:1], R[:1], 1, *args)
+    b2, o2, *_ = descrip_work(level, centers, R, 2, *args)
     window, row = 4 * 10 ** 3, 4 * (1 + 3 + 3 + 9) + 4 * 768
     assert (b1, b2) == (window + row, window + 2 * row)
     assert o2 == 2 * o1 > 0

@@ -15,6 +15,7 @@ import pytest
 import torch
 
 from sift3d_tpu_torch.config import DESC_RAD_FCTR, DESC_SIG_FCTR
+from sift3d_tpu_torch.features.descriptor import postprocess
 from sift3d_tpu_torch.features.match import nn_match
 from sift3d_tpu_torch.features.orientation import level_geometry
 from sift3d_tpu_torch.features.windows import window_extent
@@ -194,6 +195,44 @@ def test_descrip_window_kernel_slab_split(cuda):
     got = got.cpu()
     assert torch.all(got[1:] == 0)
     assert (got - want).abs().max() <= 1e-4 * want.abs().max()
+
+
+@pytest.mark.parametrize("contrast, offset", [(1e-4, 0.0), (1e-5, 0.0),
+                                              (1e-5, 0.5)])
+def test_descrip_window_kernel_dark_window(cuda, contrast, offset):
+    """A window whose gradients lie 1e-4 to 1e-5 below the level's largest
+    value (a bright blob elsewhere; with ``offset``, the window also sits
+    on a bright flat background), as soft tissue beside bone in CT: the
+    kernel's fixed-point sums hold each row against the plain version, in
+    a launch split into z-slabs beside a row over the bright blob."""
+    rng = np.random.default_rng(7)
+    shape = (64, 64, 64)
+    z, y, x = np.meshgrid(*(np.arange(n) for n in shape), indexing="ij")
+    bright = np.exp(-((z - 5) ** 2 + (y - 5) ** 2 + (x - 5) ** 2) / 8.0)
+    level = torch.as_tensor((_level(rng, shape) +
+                             (offset + bright) / contrast).astype(np.float32))
+    units = (1.0, 1.0, 1.0)
+    sigma = float(np.float32(1.6) * np.float32(DESC_SIG_FCTR))
+    rad = float(np.float32(DESC_RAD_FCTR) * np.float32(sigma))
+    radii = tuple(int(math.ceil(rad / u)) for u in units)
+    cores = tuple(window_extent(r, n, False) for r, n in zip(radii, shape))
+    assert cuda_window.slab_plan(2, cores[0])[1] > 1
+    centers = torch.tensor([[40.3, 41.7, 38.2], [10.4, 9.6, 10.1]])
+    R = torch.as_tensor(np.array([np.linalg.qr(a)[0] for a in
+                                  rng.standard_normal((2, 3, 3))],
+                                 np.float32))
+    geom = (radii, cores, units, sigma, rad)
+    want = cuda_window.descrip_window_plain(level, centers, R, 2, *geom)
+    got = cuda_window.descrip_window(level.to(cuda), centers.to(cuda),
+                                     R.to(cuda), 2, *geom).cpu()
+    assert (want[0] != 0).sum() > 100
+    rel = ((got - want).abs().amax(1) / want.abs().amax(1)).tolist()
+    dev = (postprocess(got) - postprocess(want)).abs().max().item()
+    print(f"dark window {contrast:g}, offset {offset:g}: max |dev| of the "
+          f"raw rows over each row's largest bin {rel}, of the descriptors "
+          f"{dev:.3e}")
+    assert dev <= 2e-3
+    assert max(rel) <= 1e-4
 
 
 def test_match_kernel_split_ranges(cuda):

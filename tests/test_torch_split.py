@@ -15,8 +15,12 @@ import pytest
 import torch
 
 from sift3d_tpu_torch.config import DESC_NUMEL, DESC_RAD_FCTR, DESC_SIG_FCTR
-from sift3d_tpu_torch.features.windows import window_extent
-from sift3d_tpu_torch.ops.cuda_window import (NUM_SMS, descrip_window_plain,
+from sift3d_tpu_torch.features.windows import window_extent, window_starts
+from sift3d_tpu_torch.ops.cuda_window import (NUM_SMS, OPS_CONTRIB_VOXEL,
+                                              OPS_GEOMETRY_VOXEL, OPS_LINE,
+                                              descrip_active,
+                                              descrip_window_plain,
+                                              descrip_work,
                                               geometry_constants, line_span,
                                               slab_plan)
 
@@ -122,3 +126,45 @@ def test_line_span_keeps_every_window_voxel(units):
                 kept += span[1] - span[0] + 1
     # The cut keeps little more than the voxels that pass.
     assert total > 0 and kept < 2.0 * total
+
+
+@pytest.mark.parametrize("units", [(1.0, 1.0, 1.0), (1.0, 1.3, 0.8)])
+def test_descrip_active_counts(units):
+    """The bound's voxel counts: the voxels in the sphere and rotated bin
+    cube equal a numpy count of the same fp32 tests; on a flat level none
+    adds to a bin, on a rough one nearly all do; the operations follow
+    the per-line and per-voxel counts."""
+    f = np.float32
+    rng = np.random.default_rng(9)
+    shape = (30, 34, 28)
+    K, count = 4, 3
+    centers, R, geom = _rows(rng, shape, K, units, 1.2)
+    radii, cores = geom[0], geom[1]
+    g = geometry_constants(*geom[2:])
+    starts = window_starts(shape, torch.floor(centers).long(), radii,
+                           cores).numpy()
+    want = 0
+    for k in range(count):
+        axes = [(np.arange(s0, s0 + n).astype(f) - f(c)) * f(u)
+                for s0, n, c, u in zip(starts[k], cores, centers[k].numpy(),
+                                       units[::-1])]
+        vz, vy, vx = np.meshgrid(*axes, indexing="ij")
+        ok = (vx * vx + vy * vy) + vz * vz <= f(g["rad2"])
+        Rk = R[k].numpy()
+        for i in range(3):
+            kk = (Rk[0, i] * vx + Rk[1, i] * vy) + Rk[2, i] * vz
+            vb = (kk + f(g["half_width"])) * f(g["bin_fctr"])
+            ok &= (vb >= 0) & (vb < 4)
+        want += int(ok.sum())
+    boxes = count * cores[0] * cores[1] * cores[2]
+    flat = torch.zeros(shape)
+    assert descrip_active(flat, centers, R, count, *geom) == (0, want, boxes)
+    rough = torch.as_tensor(rng.standard_normal(shape).astype(np.float32))
+    contrib, geometry, n_box = descrip_active(rough, centers, R, count, *geom)
+    assert geometry == want > 0 and n_box == boxes
+    assert 0.99 * geometry <= contrib <= geometry
+    _, ops, *counts = descrip_work(rough, centers, R, count, *geom)
+    assert counts == [contrib, geometry, boxes]
+    assert ops == (count * cores[0] * cores[1] * OPS_LINE +
+                   (geometry - contrib) * OPS_GEOMETRY_VOXEL +
+                   contrib * OPS_CONTRIB_VOXEL)
