@@ -54,15 +54,19 @@
 //     their values, then one atomic on a single histogram per block, was
 //     measured and is several times slower.)
 //     The scale is a power of two from the range (max - min) of the values
-//     the block's gradients read (its slab of the window with the halo,
-//     one min/max pass before the candidates), such that a pass of 2048
-//     candidates cannot overflow; after each pass the integer sums fold
-//     into a float histogram. Each contribution is rounded to a step of
-//     2^-21 to 2^-22 of the largest gradient the slab could hold, so the
-//     error follows the window's own contrast, not the level's; the
-//     integer sums are exact and order-free. This is the one place the
-//     kernel leaves fp32 (the card test of a dark window inside a bright
-//     level holds it to the descriptor tolerance).
+//     the block's gradients read (its slab of the window with the halo),
+//     such that a pass of 2048 candidates cannot overflow; after each pass
+//     the integer sums fold into a float histogram. Each contribution is
+//     rounded to a step of 2^-21 to 2^-22 of the largest gradient the
+//     slab could hold, so the error follows the window's own contrast,
+//     not the level's; the integer sums are exact and order-free. This is
+//     the one place the kernel leaves fp32 (the card test of a dark window
+//     inside a bright level holds it to the descriptor tolerance). The
+//     range comes from a first pass that takes the min and max of each
+//     8^3 tile of the level (the level read once); a block reduces the
+//     few tiles that cover its slab. (Each block scanning its own slab
+//     instead read the boxes, 2 to 9 times the level, and cost a third
+//     more kernel time in the config-4 batch.)
 //   - The face scan takes its normals from the kernel's parameters,
 //     computes 10 dot products (the other 10 faces are their antipodes)
 //     and finds the first argmax as a tree over index-ordered halves (the
@@ -73,8 +77,8 @@
 //
 // What bounds it now: fp32 instruction throughput in the per-voxel
 // arithmetic (216 operations per voxel that adds to the histogram, as
-// ops/cuda_window.py counts them), with the line scan, the min/max pass and
-// the shared atomics behind it; device memory is not the limit (the
+// ops/cuda_window.py counts them), with the line scan, the tile-range pass
+// and the shared atomics behind it; device memory is not the limit (the
 // windows are read mostly from L1 and L2). At the 256^3 registration's
 // small buckets the host's launch overhead is of the same order.
 
@@ -88,6 +92,7 @@ constexpr int kHist = 768;
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 constexpr int kPass = 2048;   // candidate voxels between fixed-point folds
+constexpr int kTile = 8;      // edge of the tiles of the range pass
 constexpr float kRound = 12582912.0f;     // 1.5 * 2^23
 constexpr float kBinEps = 1e-3f;          // bin-cube margin of a line's span
 constexpr float kFlat = 1e-6f;            // |d k / d x| below which a line
@@ -296,13 +301,46 @@ __device__ __forceinline__ void accumulate(
   }
 }
 
+// Min and max of each kTile^3 tile of a (B, nz, ny, nx) level, into range
+// (B, tz, ty, tx) as (min, max): a warp per tile, lanes on 4 lines of 8.
+__global__ void __launch_bounds__(kThreads) tile_range_kernel(
+    const float* __restrict__ level, int nz, int ny, int nx, int tz, int ty,
+    int tx, long long tiles, float2* __restrict__ range) {
+  const long long t =
+      static_cast<long long>(blockIdx.x) * kWarps + (threadIdx.x >> 5);
+  if (t >= tiles) return;
+  const int lane = threadIdx.x & 31;
+  const int ix = static_cast<int>(t % tx);
+  const int iy = static_cast<int>(t / tx % ty);
+  const int iz = static_cast<int>(t / tx / ty % tz);
+  const float* lv = level + t / tx / ty / tz * nz * ny * nx;
+  const int x = ix * kTile + (lane & 7);
+  float lo = INFINITY, hi = -INFINITY;
+#pragma unroll
+  for (int j = 0; j < kTile * kTile / 4; ++j) {
+    const int y = iy * kTile + (j & 1) * 4 + (lane >> 3);
+    const int z = iz * kTile + (j >> 1);
+    if (x < nx && y < ny && z < nz) {
+      const float v = lv[(static_cast<size_t>(z) * ny + y) * nx + x];
+      lo = fminf(lo, v);
+      hi = fmaxf(hi, v);
+    }
+  }
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) {
+    lo = fminf(lo, __shfl_xor_sync(0xffffffffu, lo, o));
+    hi = fmaxf(hi, __shfl_xor_sync(0xffffffffu, hi, o));
+  }
+  if (lane == 0) range[t] = make_float2(lo, hi);
+}
+
 __global__ void __launch_bounds__(kThreads) descrip_window_kernel(
     const float* __restrict__ level, int nz, int ny, int nx,
     const int* __restrict__ vol, const float* __restrict__ centers,
     const float* __restrict__ rot, int rz, int ry, int rx, int cz, int cy,
     int cx, int planes, Params p, Normals nrm,
     const float* __restrict__ tables, const int* __restrict__ face_idx,
-    float* __restrict__ out) {
+    const float2* __restrict__ range, float* __restrict__ out) {
   __shared__ int ihist[kWarps * kHist];   // this pass's fixed-point sums
   __shared__ float hist[kHist];
   __shared__ float s_vinv[kFaces * 9];
@@ -332,23 +370,30 @@ __global__ void __launch_bounds__(kThreads) descrip_window_kernel(
   const int sy = core_start(f.cy, ry, ny, cy);
   const int sx = core_start(f.cx, rx, nx, cx);
   const size_t lplane = static_cast<size_t>(ny) * nx;
-  const float* lv =
-      level + static_cast<size_t>(vol ? vol[k] : 0) * nz * lplane;
+  const int volume = vol ? vol[k] : 0;
+  const float* lv = level + static_cast<size_t>(volume) * nz * lplane;
   int* h = ihist + warp * kHist;
   const int z_lo = blockIdx.y * planes;
   const int nplanes = min(planes, cz - z_lo);
 
-  // Range of the values the slab's gradients read: its core planes and
-  // lines with the one-voxel halo, a warp per line.
+  // Range of the values the slab's gradients read (its core planes and
+  // lines with the one-voxel halo), over the tiles that cover them.
   float lo = INFINITY, hi = -INFINITY;
-  const int hy = cy + 2, hx = cx + 2;
-  for (int line = warp; line < (nplanes + 2) * hy; line += kWarps) {
-    const int lz = line / hy, ly = line - lz * hy;
-    const size_t z = sz + z_lo - 1 + lz, y = sy - 1 + ly;
-    const float* row = lv + (z * ny + y) * nx + sx - 1;
-    for (int x = lane; x < hx; x += 32) {
-      lo = fminf(lo, row[x]);
-      hi = fmaxf(hi, row[x]);
+  {
+    const int ty = (ny + kTile - 1) / kTile, tx = (nx + kTile - 1) / kTile;
+    const int z0 = (sz + z_lo - 1) / kTile, y0 = (sy - 1) / kTile,
+              x0 = (sx - 1) / kTile;
+    const int mz = (sz + z_lo + nplanes) / kTile - z0 + 1,
+              my = (sy + cy) / kTile - y0 + 1,
+              mx = (sx + cx) / kTile - x0 + 1;
+    const float2* rg = range + static_cast<size_t>(volume) *
+                                   ((nz + kTile - 1) / kTile) * ty * tx;
+    for (int i = tid; i < mz * my * mx; i += kThreads) {
+      const int iz = i / (my * mx), iy = i / mx % my, ix = i % mx;
+      const float2 v =
+          rg[(static_cast<size_t>(z0 + iz) * ty + y0 + iy) * tx + x0 + ix];
+      lo = fminf(lo, v.x);
+      hi = fmaxf(hi, v.y);
     }
   }
 #pragma unroll
@@ -481,7 +526,7 @@ __global__ void merge_slabs_kernel(const float* __restrict__ part, int slabs,
 }  // namespace
 
 // Raw (unnormalized) descriptors for `num_rows` keypoints of one level
-// bucket. level (B, nz, ny, nx) f32; vol (num_rows,) i32 volume of each
+// bucket. level (nb, nz, ny, nx) f32; vol (num_rows,) i32 volume of each
 // row, or null for volume 0; centers (num_rows, 3) f32 (z, y, x); rot
 // (num_rows, 9) f32 row-major R; radii (rz, ry, rx) and cores (cz, cy, cx)
 // the window half-extents and clamped core extents; rows split into
@@ -489,16 +534,17 @@ __global__ void merge_slabs_kernel(const float* __restrict__ part, int slabs,
 // (20, 3) f32 outward face normals in host memory; tables: the same normals
 // then 20x9 inverse vertex matrices (f32, device); face_idx (20, 3) i32
 // histogram vertex of each face corner; out (num_rows, 768) f32; scratch
-// count * slabs * 768 f32 (unused when slabs == 1). Returns the first CUDA
-// error of the launches.
+// count * slabs * 768 f32 (unused when slabs == 1); range nb * ceil(nz / 8)
+// * ceil(ny / 8) * ceil(nx / 8) float pairs. Returns the first CUDA error
+// of the launches.
 extern "C" int sift3d_descrip_window(
-    const float* level, int nz, int ny, int nx, const int* vol,
+    const float* level, int nb, int nz, int ny, int nx, const int* vol,
     const float* centers, const float* rot, int num_rows, int count, int rz,
     int ry, int rx, int cz, int cy, int cx, int planes, int slabs, float ux,
     float uy, float uz, float inv_ux, float inv_uy, float inv_uz, float rad2,
     float sig2, float half_width, float bin_fctr, float bary_eps,
     const float* normals, const float* tables, const int* face_idx,
-    float* out, float* scratch, void* stream) {
+    float* out, float* scratch, float* range, void* stream) {
   if (num_rows <= 0) return 0;
   if (planes < 1 || slabs < 1 || slabs * planes < cz || cz > 1024 ||
       cy > 1024 || cx > 1024)
@@ -520,11 +566,18 @@ extern "C" int sift3d_descrip_window(
         return static_cast<int>(cudaErrorInvalidValue);
   const Params p{ux, uy, uz, inv_ux, inv_uy, inv_uz, rad2, sig2,
                  half_width, bin_fctr, bary_eps};
+  const int tz = (nz + kTile - 1) / kTile, ty = (ny + kTile - 1) / kTile,
+            tx = (nx + kTile - 1) / kTile;
+  const long long tiles = static_cast<long long>(nb) * tz * ty * tx;
+  float2* rg = reinterpret_cast<float2*>(range);
+  tile_range_kernel<<<static_cast<unsigned>((tiles + kWarps - 1) / kWarps),
+                      kThreads, 0, s>>>(level, nz, ny, nx, tz, ty, tx, tiles,
+                                        rg);
   float* dst = slabs > 1 ? scratch : out;
   const dim3 grid(count, slabs);
   descrip_window_kernel<<<grid, kThreads, 0, s>>>(
       level, nz, ny, nx, vol, centers, rot, rz, ry, rx, cz, cy, cx, planes, p,
-      nrm, tables, face_idx, dst);
+      nrm, tables, face_idx, rg, dst);
   const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess || slabs == 1) return static_cast<int>(err);
   merge_slabs_kernel<<<count, 256, 0, s>>>(scratch, slabs, out);

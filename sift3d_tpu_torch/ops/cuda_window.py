@@ -29,8 +29,9 @@ zero.
   over the threads, and bins are added as fixed-point integers with native
   shared atomics into a private histogram per warp, folded into fp32
   every 2048 candidates. The fixed-point step of a block follows the range
-  of the values its slab reads (a min/max pass over the slab), so a dark
-  window in a bright level is summed as finely as a bright one.
+  of the values its slab reads (from a first pass that takes the min and
+  max of each 8^3 tile of the level), so a dark window in a bright level
+  is summed as finely as a bright one.
 - On the H100 the kernel is bound by its fp32 arithmetic per voxel, not by
   device memory (see ``descrip_work`` for the counts); at small buckets by
   the launches' host overhead.
@@ -258,8 +259,8 @@ def _kernel_fn():
     fn = _build.load("descrip_window").sift3d_descrip_window
     if fn.argtypes is None:
         P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        fn.argtypes = [P, I, I, I, P, P, P, I, I, I, I, I, I, I, I, I, I,
-                       F, F, F, F, F, F, F, F, F, F, F, P, P, P, P, P, P]
+        fn.argtypes = [P, I, I, I, I, P, P, P, I, I, I, I, I, I, I, I, I, I,
+                       F, F, F, F, F, F, F, F, F, F, F, P, P, P, P, P, P, P]
         fn.restype = ctypes.c_int
     return fn
 
@@ -300,21 +301,25 @@ def descrip_window(level, centers, R, count: int, radii, cores, units,
     n = max(0, min(int(count), K))
     planes, slabs = slab_plan(n, cores[0])
     scratch = n * slabs * DESC_NUMEL if slabs > 1 else 0
-    buf = torch.empty(K * DESC_NUMEL + scratch, dtype=torch.float32,
-                      device=level.device)
+    # (min, max) of each 8^3 tile of the level: sets the kernel's
+    # fixed-point step per block.
+    tiles = level.shape[0] * math.prod(-(-d // 8) for d in level.shape[1:])
+    buf = torch.empty(K * DESC_NUMEL + scratch + 2 * tiles,
+                      dtype=torch.float32, device=level.device)
     out = buf[:K * DESC_NUMEL].view(K, DESC_NUMEL)
     if K == 0:
         return out
     normals, tables, face_idx = _tables(level.device)
     g = geometry_constants(units, sigma, rad)
     err = _kernel_fn()(
-        level.data_ptr(), *level.shape[1:],
+        level.data_ptr(), *level.shape,
         None if vol is None else vol.data_ptr(), centers.data_ptr(),
         rot.data_ptr(), K, n, *radii, *cores, planes, slabs,
         g["ux"], g["uy"], g["uz"], g["inv_ux"], g["inv_uy"], g["inv_uz"],
         g["rad2"], g["sig2"], g["half_width"], g["bin_fctr"], g["bary_eps"],
         normals.ctypes.data, tables.data_ptr(), face_idx.data_ptr(),
         out.data_ptr(), buf[K * DESC_NUMEL:].data_ptr() if scratch else None,
+        buf[K * DESC_NUMEL + scratch:].data_ptr(),
         torch.cuda.current_stream(level.device).cuda_stream)
     _build.check(err, "descrip_window launch")
     descrip_window.launches += 1
