@@ -65,8 +65,8 @@
 //     range comes from a first pass that takes the min and max of each
 //     8^3 tile of the level (the level read once); a block reduces the
 //     few tiles that cover its slab. (Each block scanning its own slab
-//     instead read the boxes, 2 to 9 times the level, and cost a third
-//     more kernel time in the config-4 batch.)
+//     instead read every window in full, 9 times the union of the windows
+//     in the config-4 batch, and cost a third more kernel time there.)
 //   - The face scan takes its normals from the kernel's parameters,
 //     computes 10 dot products (the other 10 faces are their antipodes)
 //     and finds the first argmax as a tree over index-ordered halves (the
