@@ -9,12 +9,14 @@ sm_90a, one process per source, into ``build/kernels/``), then:
    version on the real pyramid levels of a 256^3 volume (max abs deviation
    <= 2e-3 on the postprocessed descriptors, rows past ``count`` zero);
 2. holds the orientation-window kernel (3) against its plain version on
-   every level bucket of the same volume's extrema (first 64 rows, and 5
-   rows past ``count`` that must come back zero): the float64 tensor sums
-   and the window gradient within 1e-5 of the row's largest |term|, and the
-   keypoint sets that follow equal (``valid`` exact, R within 1e-4) except
-   on rows whose plain eigenvalue ratio or corner score lies within 1e-5
-   of its threshold, which are counted;
+   every level bucket of the same volume's extrema, one level a launch
+   (first 64 rows, and 5 rows past ``count`` that must come back zero),
+   and as ``features.detect.orient_levels`` calls it, every row of every
+   level in one launch (5 rows past each level's count): the float64
+   tensor sums and the window gradient within 1e-5 of the row's largest
+   |term|, and the keypoint sets that follow equal (``valid`` exact, R
+   within 1e-4) except on rows whose plain eigenvalue ratio or corner
+   score lies within 1e-5 of its threshold, which are counted;
 3. holds the streamed-matcher kernel (2) against its plain version, at the
    main path's arguments and at multi-tile sizes with invalid and
    duplicated rows, and against the dense matcher (best and second SSD
@@ -24,20 +26,25 @@ sm_90a, one process per source, into ``build/kernels/``), then:
 4. drives ``RegSift3D().register(src, ref)`` on the 256^3 volume and its
    copy rolled by ``SHIFT`` voxels along x, once with the default matcher
    and once with ``MatchParams(impl="streamed")``, with the kernels' launch
-   counters set to 0 just before each run and read just after; both
+   counters set to 0 just before each run and read just after (kernel 3
+   exactly once per detection: 2); both
    affines must meet the reference's 5e-2 / 5-voxel contract; then
    registers the first 16 config-4 pairs (64^3) one at a time and asserts
    a pass rate >= 0.60;
 5. checks kernels 3 and 1 on one level bucket of the config-4 batch, with
-   the rows of many volumes in one launch (1e-5 and 2e-3 as above), then
+   the rows of many volumes in one launch (1e-5 and 2e-3 as above), and
+   kernel 3 on every level of one side of the batch in one launch, then
    drives the batched path, ``parallel.pipeline.batch_register_pairs``, on
    64 config-4 pairs at ``bench.py``'s caps, counters set to 0 just before
-   and read just after: kernels 1 and 3 launch once per non-empty level
-   bucket of each side (not once per volume), no pair reports
+   and read just after: kernel 3 launches once per side (one detection of
+   all levels and volumes), kernel 1 once per non-empty level bucket of
+   each side (not once per volume), no pair reports
    ``kp_overflow``, the pass rate is >= 0.60, and the first 16 pairs agree
    with the sequential results of phase 4 (``ok`` on >= 15, A within 1e-3
    where both are ok);
-6. times each kernel, its plain version and a library yardstick, the
+6. times each kernel, its plain version and a library yardstick (kernel 3
+   as ``orient_levels`` calls it, by CUDA events and alone in the
+   profiler's trace), the
    batched call (min of 5, pairs/s), and profiles one 256^3 registration
    and one batched call: each stage's ``sift3d.<stage>`` span on the host
    and the device, the device's busy time and idle share
@@ -169,11 +176,40 @@ def orient_args(gpyr, ext, plan, limit=None):
     return out
 
 
-def check_orient(buckets, corner_thresh, label) -> dict:
-    """Kernel 3 against its plain version on each bucket (5 extra rows past
-    count must be zero), then the keypoint sets that follow."""
+def compare_terms(got, want, corner_thresh, where) -> tuple[float, float,
+                                                            int]:
+    """Kernel 3's sums ``got`` against the plain version's ``want`` (rows
+    below count): within ORIENT_RTOL of each row's largest |term|, and the
+    keypoint sets that follow equal except on near-threshold rows. Returns
+    (max relative deviation, max abs deviation, rows that differ)."""
     from sift3d_tpu_torch.features.orientation import (
         orientation_scores, orientations_from_tensor)
+    (A_k, vd_k), (A_p, vd_p) = got, want
+    assert A_k.dtype == torch.float64, "kernel 3 sums must be float64"
+    if not A_p.shape[0]:
+        return 0.0, 0.0, 0
+    scale = torch.maximum(A_p.abs().amax(1), vd_p.abs().amax(1).double())
+    dev_ = torch.maximum((A_k - A_p).abs().amax(1),
+                         (vd_k - vd_p).abs().amax(1).double())
+    rel = (dev_ / scale.clamp(min=1e-300)).max().item()
+    assert rel <= ORIENT_RTOL, f"{where}: kernel 3 rel dev {rel:.3e}"
+    R_k, ok_k = orientations_from_tensor(A_k, vd_k, corner_thresh)
+    R_p, ok_p = orientations_from_tensor(A_p, vd_p, corner_thresh)
+    _, _, ratio, corner = orientation_scores(A_p, vd_p)
+    near_rows = ((ratio - 0.90).abs() <= NEAR_THRESH).any(-1) | \
+        ((corner - corner_thresh).abs() <= NEAR_THRESH)
+    r_dev = (R_k - R_p).abs().amax((1, 2))
+    diff = (ok_k != ok_p) | (ok_k & ok_p & (r_dev > ORIENT_R_TOL))
+    bad = diff & ~near_rows
+    assert not bad.any(), \
+        f"{where}: {int(bad.sum())} keypoint rows differ from plain"
+    return rel, dev_.max().item(), int(diff.sum())
+
+
+def check_orient(buckets, corner_thresh, label) -> dict:
+    """Kernel 3 (one level a launch) against its plain version on each
+    bucket (5 extra rows past count must be zero), then the keypoint sets
+    that follow."""
     from sift3d_tpu_torch.ops.cuda_orient import (orient_terms,
                                                   orient_terms_plain)
     worst_rel = worst_abs = 0.0
@@ -184,31 +220,14 @@ def check_orient(buckets, corner_thresh, label) -> dict:
         zyx_p = torch.cat([zyx, zyx[:1].expand(pad, 3)])
         vol_p = torch.cat([vol, vol[:1].expand(pad)])
         A_k, vd_k = orient_terms(level, zyx_p, n, *geom, vol_p)
-        A_p, vd_p = orient_terms_plain(level, zyx, n, *geom, vol)
+        want = orient_terms_plain(level, zyx, n, *geom, vol)
         torch.cuda.synchronize()
-        assert A_k.dtype == torch.float64, "kernel 3 sums must be float64"
         assert torch.all(A_k[n:] == 0) and torch.all(vd_k[n:] == 0), \
             f"{label} {lv}: rows past count not zero"
-        A_k, vd_k = A_k[:n], vd_k[:n]
-        scale = torch.maximum(A_p.abs().amax(1), vd_p.abs().amax(1).double())
-        dev_ = torch.maximum((A_k - A_p).abs().amax(1),
-                             (vd_k - vd_p).abs().amax(1).double())
-        rel = (dev_ / scale.clamp(min=1e-300)).max().item()
-        worst_rel = max(worst_rel, rel)
-        worst_abs = max(worst_abs, dev_.max().item())
-        assert rel <= ORIENT_RTOL, f"{label} {lv}: kernel 3 rel dev {rel:.3e}"
-
-        R_k, ok_k = orientations_from_tensor(A_k, vd_k, corner_thresh)
-        R_p, ok_p = orientations_from_tensor(A_p, vd_p, corner_thresh)
-        _, _, ratio, corner = orientation_scores(A_p, vd_p)
-        near_rows = ((ratio - 0.90).abs() <= NEAR_THRESH).any(-1) | \
-            ((corner - corner_thresh).abs() <= NEAR_THRESH)
-        r_dev = (R_k - R_p).abs().amax((1, 2))
-        diff = (ok_k != ok_p) | (ok_k & ok_p & (r_dev > ORIENT_R_TOL))
-        bad = diff & ~near_rows
-        assert not bad.any(), \
-            f"{label} {lv}: {int(bad.sum())} keypoint rows differ from plain"
-        near += int(diff.sum())
+        rel, err, diff = compare_terms((A_k[:n], vd_k[:n]), want,
+                                       corner_thresh, f"{label} {lv}")
+        worst_rel, worst_abs = max(worst_rel, rel), max(worst_abs, err)
+        near += diff
         rows += n
     print(f"orient_window vs plain ({label}): {rows} rows over "
           f"{len(buckets)} level buckets, max rel dev {worst_rel:.3e} "
@@ -216,6 +235,62 @@ def check_orient(buckets, corner_thresh, label) -> dict:
           f"keypoint sets equal except {near} near-threshold rows")
     return dict(rows=rows, buckets=len(buckets), max_rel_err=worst_rel,
                 max_abs_err=worst_abs, near_threshold_rows=near)
+
+
+def padded(rows, args, pad):
+    """``orient_terms_levels`` arguments with ``pad`` rows past each
+    level's count (copies of its first row), which must come back zero."""
+    out_rows, out_args, r0 = [], [], 0
+    for a in args:
+        n = a[1]
+        r = rows[r0:r0 + n]
+        if n:
+            r = torch.cat([r, r[:1].expand(pad, 4)])
+        out_rows.append(r)
+        out_args.append((a[0], r.shape[0], n, *a[3:]))
+        r0 += n
+    return torch.cat(out_rows), out_args
+
+
+def check_orient_levels(calls, corner_thresh, label) -> dict:
+    """Kernel 3 as ``orient_levels`` calls it, every level of a detection
+    in one launch (5 rows past each level's count), against the plain
+    version on the same rows, then the keypoint sets that follow."""
+    from sift3d_tpu_torch.ops.cuda_orient import (orient_terms_levels,
+                                                  orient_terms_levels_plain)
+    worst_rel = worst_abs = 0.0
+    near = rows = levels = 0
+    for c, (r_all, args) in enumerate(calls):
+        rows_p, args_p = padded(r_all, args, 5)
+        before = orient_terms_levels.launches
+        A_k, vd_k = orient_terms_levels(rows_p, args_p)
+        assert orient_terms_levels.launches == before + 1
+        A_p, vd_p = orient_terms_levels_plain(r_all, args)
+        torch.cuda.synchronize()
+        r0 = 0
+        keep = []
+        for a in args_p:
+            n, count = a[1], a[2]
+            assert torch.all(A_k[r0 + count:r0 + n] == 0) and \
+                torch.all(vd_k[r0 + count:r0 + n] == 0), \
+                f"{label} call {c}: rows past count not zero"
+            keep.append(torch.arange(r0, r0 + count, device=A_k.device))
+            r0 += n
+            levels += int(count > 0)
+        keep = torch.cat(keep)
+        rel, err, diff = compare_terms((A_k[keep], vd_k[keep]), (A_p, vd_p),
+                                       corner_thresh, f"{label} call {c}")
+        worst_rel, worst_abs = max(worst_rel, rel), max(worst_abs, err)
+        near += diff
+        rows += A_p.shape[0]
+    print(f"orient_window, one launch a detection, vs plain ({label}): "
+          f"{rows} rows of {levels} levels in {len(calls)} launches, max rel "
+          f"dev {worst_rel:.3e} (tolerance {ORIENT_RTOL}), max abs dev "
+          f"{worst_abs:.3e}; keypoint sets equal except {near} near-threshold "
+          f"rows")
+    return dict(rows=rows, levels=levels, launches=len(calls),
+                max_rel_err=worst_rel, max_abs_err=worst_abs,
+                near_threshold_rows=near)
 
 
 def check_descrip_window(buckets, label) -> float:
@@ -353,14 +428,37 @@ def check_match_kernel(d_src, d_ref, dev) -> dict:
 
 
 def count_buckets(kp, ext) -> tuple[int, int]:
-    """(levels whose extrema feed kernel 3, levels whose keypoints feed
-    kernel 1) of one side of a batch: the launches each kernel should
-    make, once per non-empty level bucket."""
-    n_orient = sum(int(rows.shape[0] > 0) for rows, _, _ in ext.values())
+    """The launches kernels 3 and 1 should make for one side of a batch:
+    one for the detection if any level has extrema rows, and one per
+    level bucket of kept keypoints."""
+    n_orient = int(any(rows.shape[0] > 0 for rows, _, _ in ext.values()))
     valid = kp.valid_mask()
     n_desc = len({(int(o), int(s)) for o, s in
                   zip(kp.o[valid].tolist(), kp.s[valid].tolist())})
     return n_orient, n_desc
+
+
+def kernel_alone_ms(fn, name: str, reps: int) -> float:
+    """Device time of the kernels whose name holds ``name``, per call of
+    ``fn``, from the profiler's trace of ``reps`` calls."""
+    import tempfile
+    fn()
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "trace.json")
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            events = json.load(f)["traceEvents"]
+    us = [e["dur"] for e in events if e.get("ph") == "X" and
+          e.get("cat") == "kernel" and name in e.get("name", "")]
+    assert us, f"no {name} kernel in the profile"
+    return sum(us) / 1e3 / reps
 
 
 def work_sum(fn, args) -> list[float]:
@@ -383,6 +481,7 @@ def main() -> int:
     from sift3d_tpu_torch import pyramid as pyr
     from sift3d_tpu_torch.config import MatchParams
     from sift3d_tpu_torch.features import detect as detect_mod
+    from sift3d_tpu_torch.features.orientation import levels_args
     from sift3d_tpu_torch.ops import cuda_match, cuda_orient, cuda_window
     from sift3d_tpu_torch.ops.cuda_match import (reduce_one_way,
                                                  reduce_one_way_plain)
@@ -420,13 +519,16 @@ def main() -> int:
     worst1 = check_descrip_window(
         level_args(s3d._gpyr, plan, kp_src, limit=N_CHECK_ROWS), "256^3")
     k1_args = level_args(s3d._gpyr, plan, kp_src)
-    k3_args = []
+    k3_args = []           # orient_levels' call of each volume's detection
     for vol in (src, ref):
         gpyr, ext = extrema_of(vol[None], plan, params, dev)
-        k3_args += orient_args(gpyr, ext, plan)
+        k3_args.append(levels_args(detect_mod.keypoint_levels(gpyr, ext,
+                                                              plan)))
     k3_check = check_orient(
         orient_args(*extrema_of(src[None], plan, params, dev), plan,
                     limit=N_CHECK_ROWS), params.corner_thresh, "256^3")
+    k3_levels_check = check_orient_levels(k3_args[:1], params.corner_thresh,
+                                          "256^3")
     kp_ref, d_ref = s3d.detect_and_extract(ref)
     k1_args += level_args(s3d._gpyr, plan, kp_ref)
 
@@ -441,12 +543,12 @@ def main() -> int:
         r = RegSift3D(match_params=mp, device=dev)
         cuda_window.descrip_window.launches = 0
         cuda_match.reduce_one_way.launches = 0
-        cuda_orient.orient_terms.launches = 0
+        cuda_orient.orient_terms_levels.launches = 0
         res = r.register(src, ref)
         torch.cuda.synchronize()
         counts = (cuda_window.descrip_window.launches,
                   cuda_match.reduce_one_way.launches,
-                  cuda_orient.orient_terms.launches)
+                  cuda_orient.orient_terms_levels.launches)
         ok = bool(res.ok and pair_ok(res.A) and not res.kp_overflow)
         print(f"register {SIZE}^3 ({label} matcher): ok={ok}, "
               f"matches {len(res.match_src)}, inliers {res.num_inliers}, "
@@ -455,7 +557,8 @@ def main() -> int:
               f"A={np.round(res.A, 4).tolist()}")
         assert ok, f"{SIZE}^3 pair outside the contract ({label})"
         assert counts[0] > 0, "descrip_window never launched"
-        assert counts[2] > 0, "orient_window never launched"
+        assert counts[2] == 2, \
+            f"orient_window launched {counts[2]} times, not once per detection"
         runs[label] = dict(counts=counts, n_matches=len(res.match_src),
                            inliers=res.num_inliers, A=res.A.tolist())
     assert runs["streamed"]["counts"][1] > 0, "match_stream never launched"
@@ -483,11 +586,15 @@ def main() -> int:
         kp4, _, _ = batch_detect_describe(vols, plan4, params4, dev)
         sides.append((gpyr4, ext4, count_buckets(kp4, ext4)))
     gpyr4, ext4 = sides[0][:2]
-    k3_batch_args = [a for g, e, _ in sides for a in orient_args(g, e, plan4)]
+    k3_batch_args = [levels_args(detect_mod.keypoint_levels(g, e, plan4))
+                     for g, e, _ in sides]
     fullest = max(orient_args(gpyr4, ext4, plan4), key=lambda b: b[1][2])
     n_vols = int(fullest[1][8].unique().numel())
     k3_batch_check = check_orient([fullest], params4.corner_thresh,
                                   f"config-4 batch, {n_vols} volumes")
+    k3_batch_levels_check = check_orient_levels(
+        k3_batch_args[:1], params4.corner_thresh,
+        f"config-4 batch, one side, {len(src4)} volumes")
     kp_flat, vol_flat = detect_mod.orient_levels(gpyr4, ext4, plan4, params4)
     k1_batch_args = []
     for g, e, _ in sides:
@@ -506,7 +613,7 @@ def main() -> int:
 
     expect = [sum(side[2][i] for side in sides) for i in range(2)]
     cuda_window.descrip_window.launches = 0
-    cuda_orient.orient_terms.launches = 0
+    cuda_orient.orient_terms_levels.launches = 0
     cuda_match.reduce_one_way.launches = 0
     t0 = time.perf_counter()
     bres = batch_register_pairs(src4, ref4, plan4, params4, device=dev)
@@ -514,7 +621,7 @@ def main() -> int:
     first_s = time.perf_counter() - t0
     batch_counts = (cuda_window.descrip_window.launches,
                     cuda_match.reduce_one_way.launches,
-                    cuda_orient.orient_terms.launches)
+                    cuda_orient.orient_terms_levels.launches)
     A4 = bres.A.cpu().numpy()
     ok4 = bres.ok.cpu().numpy()
     passed4 = ok4 & pair_ok(A4)
@@ -523,7 +630,7 @@ def main() -> int:
     print(f"batch_register_pairs, {BATCH_PAIRS} config-4 pairs: "
           f"{int(passed4.sum())}/{BATCH_PAIRS} pass (rate {rate4:.3f}, gate "
           f"{GATE_PASS_RATE}), kp_overflow on {n_over} pairs; launches "
-          f"orient_window {batch_counts[2]} (non-empty level buckets "
+          f"orient_window {batch_counts[2]} (detections with rows "
           f"{expect[0]}), descrip_window {batch_counts[0]} (non-empty "
           f"{expect[1]}), match_stream {batch_counts[1]}; first call "
           f"{first_s:.2f} s")
@@ -543,9 +650,9 @@ def main() -> int:
                            expected=expect, same_ok=same_ok, a_dev=a_dev)
 
     # 6. Times (everything above was the warm-up).
-    from sift3d_tpu_torch.ops.cuda_orient import (orient_terms,
-                                                  orient_terms_plain,
-                                                  orient_work)
+    from sift3d_tpu_torch.ops.cuda_orient import (orient_terms_levels,
+                                                  orient_terms_levels_plain,
+                                                  orient_work_levels)
     from sift3d_tpu_torch.ops.cuda_window import (descrip_window,
                                                   descrip_window_plain,
                                                   descrip_work, slab_plan)
@@ -581,23 +688,34 @@ def main() -> int:
               f"{t['plain_ms']:.1f} ms, bound {t['bound_ms']:.4f} ms "
               f"({t['bound_by']}) [{card}]")
 
-    def k3_times(args, reps):
-        nb, o32, o64 = work_sum(orient_work, [a for _, a in args])
+    def k3_times(calls, reps):
+        nb, o32, o64, active = work_sum(orient_work_levels, calls)
         b, by = bound_ms(nb, o32, o64)
-        return dict(launches=len(args), rows=sum(a[2] for _, a in args),
-                    ms=cuda_ms(lambda: [orient_terms(*a) for _, a in args],
-                               reps),
-                    plain_ms=cuda_ms(lambda: [orient_terms_plain(*a)
-                                              for _, a in args], 1),
+        return dict(launches=len(calls),
+                    rows=sum(c[0].shape[0] for c in calls),
+                    levels=sum(int(a[1] > 0) for c in calls for a in c[1]),
+                    active_voxels=active,
+                    ms=cuda_ms(lambda: [orient_terms_levels(*c)
+                                        for c in calls], reps),
+                    alone_ms=kernel_alone_ms(
+                        lambda: [orient_terms_levels(*c) for c in calls],
+                        "orient_levels_kernel", reps),
+                    plain_ms=cuda_ms(lambda: [orient_terms_levels_plain(*c)
+                                              for c in calls], 1),
                     bound_ms=b, bound_by=by, bytes=nb, ops32=o32, ops64=o64)
     k3_256 = k3_times(k3_args, 5)
     k3_batch = k3_times(k3_batch_args, 5)
-    detail["orient_window"] = dict(reg_256=k3_256, batch=k3_batch)
+    detail["orient_window"] = dict(
+        reg_256=k3_256, batch=k3_batch,
+        checks=dict(buckets_256=k3_check, levels_256=k3_levels_check,
+                    bucket_batch=k3_batch_check,
+                    levels_batch=k3_batch_levels_check))
     for label, t in (("256^3 registration", k3_256),
                      ("config-4 batch", k3_batch)):
         print(f"orient_window per {label} ({t['launches']} launches, "
-              f"{t['rows']} rows): {t['ms']:.4f} ms "
-              f"({t['ms'] / t['launches']:.4f} per launch), plain "
+              f"{t['levels']} levels, {t['rows']} rows, "
+              f"{t['active_voxels']} voxels counted): {t['ms']:.4f} ms by "
+              f"events, kernel alone {t['alone_ms']:.4f} ms, plain "
               f"{t['plain_ms']:.3f} ms, bound {t['bound_ms']:.5f} ms "
               f"({t['bound_by']}) [{card}]")
 
@@ -679,6 +797,8 @@ def main() -> int:
                               batch_config4=batch_counts[2]),
     }
     per_reg = "all launches of one 256^3 registration"
+    k3_checks = (k3_check, k3_levels_check, k3_batch_check,
+                 k3_batch_levels_check)
     kernels = [
         dict(name="descrip_window", route="cuda",
              source="sift3d_tpu_torch/csrc/descrip_window.cu",
@@ -719,17 +839,17 @@ def main() -> int:
              source="sift3d_tpu_torch/csrc/orient_window.cu",
              replaces="sift3d_tpu/ops/pallas_orient.py:38",
              launches=batch_counts[2],
-             max_abs_err=max(k3_check["max_abs_err"],
-                             k3_batch_check["max_abs_err"]),
-             max_rel_err=max(k3_check["max_rel_err"],
-                             k3_batch_check["max_rel_err"]),
+             max_abs_err=max(c["max_abs_err"] for c in k3_checks),
+             max_rel_err=max(c["max_rel_err"] for c in k3_checks),
              ms=k3_256["ms"], plain_ms=k3_256["plain_ms"],
              bound_ms=k3_256["bound_ms"], bound_by=k3_256["bound_by"],
              library_ms=None, ms_for=per_reg,
              launches_by_path=by_path["orient_window"],
              batch_ms=k3_batch["ms"], batch_plain_ms=k3_batch["plain_ms"],
              batch_bound_ms=k3_batch["bound_ms"],
-             batch_bound_by=k3_batch["bound_by"]),
+             batch_bound_by=k3_batch["bound_by"],
+             alone_ms=k3_256["alone_ms"], batch_alone_ms=k3_batch["alone_ms"],
+             levels_256=k3_256["levels"], levels_batch=k3_batch["levels"]),
     ]
     print(card)
     print(json.dumps({"kernels": kernels}))

@@ -2,56 +2,97 @@
 //
 // Replaces the TPU kernel `_orient_kernel_body` of
 // sift3d_tpu/ops/pallas_orient.py (launched by `_orient_pallas_call`). For
-// each keypoint row below `count` it takes the nine Gaussian-weighted sums
-// of the orientation structure tensor (reference assign_eig_ori,
-// sift3d/sift.c:1354-1426) over the row's clamped core window of one
-// Gaussian pyramid level:
+// each keypoint row below its level's `count` it takes the nine
+// Gaussian-weighted sums of the orientation structure tensor (reference
+// assign_eig_ori, sift3d/sift.c:1354-1426) over the row's clamped core
+// window of one Gaussian pyramid level:
 //   - core starts clip(c - R, 1, n - 1 - core) per axis, c the row's
 //     integer centre (features/windows.window_starts);
 //   - per voxel: offset d = voxel - c, v = d * units; the voxel counts when
 //     |d| <= R on each axis and |v|^2 <= rad^2; weight
 //     w = exp(-0.5 |v|^2 / sigma^2);
 //   - unit-corrected central differences g = 0.5 (I[+1] - I[-1]) / u;
-//   - six sums w gi gj (xx, xy, xz, yy, yz, zz) in float64 from float64
-//     casts of the fp32 g and w, as the JAX package's eager path does, and
-//     three sums w gi (the window gradient), written as fp32.
-// Rows at or past `count` are written as zeros. Rows may come from
-// different volumes of a batch: row k reads volume rows[4k] of a
-// (B, nz, ny, nx) level.
+//   - six sums w gi gj (xx, xy, xz, yy, yz, zz) and three sums w gi (the
+//     window gradient, written as fp32), all in float64.
+// Rows at or past their level's `count` are written as zeros. One launch
+// covers the rows of every level of a detection and every volume of a
+// batch: row k reads volume rows[4k] of its (B, nz, ny, nx) level.
 //
-// The fp32 values are formed with unfused IEEE operations in the plain
-// version's order (__fmul_rn / __fadd_rn / __fdiv_rn), so the masks agree
-// voxel for voxel and the weights and gradients to expf's rounding.
+// What bounded the first design (one launch per level, one 256-thread
+// block per row striding over the whole core box): launches, 17 per
+// 256^3 volume, each a grid of a few dozen blocks; two integer divisions
+// and the sphere test on every box voxel, half of which fail it (and at
+// 6^3 cores 40 of the 256 threads had no voxel at all); and per counted
+// voxel an IEEE division, an expf, seven fp32 -> fp64 conversions (a
+// quarter of the fp64 FMA rate on sm_90) and 21 unfused fp64 operations.
 //
-// Design: one thread block per keypoint row; 256 threads stride over the
-// core's voxels (at most 25^3 on the levels SIFT3D uses), reading the
-// level in place at the row's volume and window start (no stacked
-// per-keypoint window copy in device memory); each thread keeps its nine
-// sums in registers; a warp-shuffle reduction and one shared-memory step
-// across the 8 warps finish the row, and thread 0 writes it.
+// Design now:
+//   - One launch for all levels. Each level's geometry, table and row range
+//     come by value in a table of up to kMaxLevels entries (the wrapper
+//     launches once per kMaxLevels levels with rows); a block belongs to
+//     one level and finds it by a scan of the table's first blocks.
+//   - The weights depend only on the offset d, so the wrapper builds once
+//     per level geometry (and caches) the list of offsets inside the
+//     sphere, |d| <= min(R, core - 1) per axis, in (dz, dy, dx) order, each
+//     with its level offset and its weight as float64. The wrapper forms
+//     |v|^2, the mask and w with the plain version's own torch operations,
+//     so mask and weights are bitwise the plain version's on the card. A
+//     lane walks that list 32 entries apart: no voxel outside the sphere is
+//     visited, and consecutive lanes read consecutive x. A row whose core
+//     does not hold the whole list (a window clamped at the level's edge)
+//     also tests each entry against its core.
+//   - A row's list is split over 1-8 warps of one block (interleaved 32-entry
+//     chunks; more warps for longer lists); a block holds 8 / warps rows of
+//     one level. Each warp reduces its sums by shuffles, and the block adds
+//     its warps' partial sums in warp order: the result does not depend on
+//     scheduling, so two launches give equal bits.
+//   - Per counted voxel: one 16-byte table load (two entries' loads in
+//     flight at once for unclamped rows), six level loads (L1 / L2:
+//     neighbouring voxels share them), nine fp32 operations for g, three
+//     fp32 -> fp64 conversions, six exact fp64 products gi gj and nine fp64
+//     FMAs fma(gi gj, w, s) / fma(gi, w, s): one rounding per term instead
+//     of three (within 1e-5 of the plain version's row maximum).
 //
-// What bounds it on the H100: float64 arithmetic, not device memory. A
-// voxel inside the sphere costs about 23 fp32 and 21 fp64 operations
-// against 6 fp32 reads that mostly hit L1 (neighbouring voxels share
-// them); the H100's fp64 rate is half its fp32 rate, so the f64 sums
-// (kept for row-exact keypoints) set the bound. Voxels outside the box or
-// the sphere are skipped before any load.
+// What bounds it on the H100: neither device memory nor the fp64 rate
+// (ops/cuda_orient.orient_work counts both).
+// A voxel costs about 1.4 SM cycles against 0.65 to issue its 83
+// instructions, and more resident rows per SM (5 or 6 blocks) make it
+// slower: the six level loads per voxel, served by L1 while a row's
+// window stays resident there, are the likely limit. Staging the table in
+// shared memory, which takes L1's capacity, was slower too.
 
 #include <cuda_runtime.h>
-#include <math.h>
+
+constexpr int kMaxLevels = 32;
+
+// One level of a launch; mirrored by `_Level` in ops/cuda_orient.py. At
+// namespace scope, since the C entry point takes an array of it.
+struct Sift3dOrientLevel {
+  const float* level;   // (B, nz, ny, nx)
+  const int4* table;    // {level offset, packed d, w as f64 (lo, hi)}
+  int nz, ny, nx;
+  int cz, cy, cx;       // clamped core extents
+  int rz, ry, rx;       // window half-extents
+  int ez, ey, ex;       // the table's extents: |d| <= e per axis
+  int entries;          // table length
+  int log2_warps;       // warps per row = 1 << log2_warps
+  int row0, rows, count;  // rows [row0, row0 + rows); real below count
+  int block0;           // first block of the level
+  float inv_ux, inv_uy, inv_uz;  // 1 / spacing, rounded in fp32
+};
+
+struct Sift3dOrientTable {
+  Sift3dOrientLevel lv[kMaxLevels];
+  int num_levels;
+};
+static_assert(sizeof(Sift3dOrientTable) + 3 * sizeof(void*) <= 4096,
+              "kernel parameters must fit in 4 KB");
 
 namespace {
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 constexpr int kSums = 9;
-
-struct Params {
-  float ux, uy, uz;              // voxel spacing (mm)
-  float inv_ux, inv_uy, inv_uz;  // 1 / spacing, rounded in fp32
-  float rad2;                    // window radius^2 (mm^2)
-  float sig2;                    // Gaussian sigma^2 (mm^2)
-};
 
 __device__ __forceinline__ int clip(int v, int lo, int hi) {
   return min(max(v, lo), hi);
@@ -62,63 +103,106 @@ __device__ __forceinline__ float central(float hi, float lo, float inv) {
   return __fmul_rn(__fmul_rn(0.5f, __fsub_rn(hi, lo)), inv);
 }
 
-__global__ void __launch_bounds__(kThreads) orient_window_kernel(
-    const float* __restrict__ level, int nz, int ny, int nx,
-    const int* __restrict__ rows, int count, int cz, int cy, int cx, int rz,
-    int ry, int rx, Params p, double* __restrict__ a6,
-    float* __restrict__ vd) {
-  const int k = blockIdx.x;
-  const int tid = threadIdx.x;
-  if (k >= count) {
-    if (tid < 6) a6[6 * k + tid] = 0.0;
-    else if (tid < kSums) vd[3 * k + tid - 6] = 0.0f;
-    return;
+// lo <= v <= hi.
+__device__ __forceinline__ bool within(int v, int lo, int hi) {
+  return static_cast<unsigned>(v - lo) <= static_cast<unsigned>(hi - lo);
+}
+
+// One row's window as the walk sees it.
+struct Row {
+  const float* c;       // the centre voxel
+  int nx, plane;        // level strides (elements)
+  int lz, hz, ly, hy, lx, hx;  // the core's offsets from the centre
+  float inv_ux, inv_uy, inv_uz;
+};
+
+// Adds table entry q (level offset, packed d, w) to the nine sums.
+__device__ __forceinline__ void accumulate(const Row& r, int4 q,
+                                           double* s) {
+  const float* v = r.c + q.x;
+  const float gx = central(__ldg(v + 1), __ldg(v - 1), r.inv_ux);
+  const float gy = central(__ldg(v + r.nx), __ldg(v - r.nx), r.inv_uy);
+  const float gz = central(__ldg(v + r.plane), __ldg(v - r.plane), r.inv_uz);
+  const double w = __hiloint2double(q.w, q.z);
+  const double X = gx, Y = gy, Z = gz;
+  // gi * gj of two fp32 values is exact in fp64.
+  s[0] = __fma_rn(__dmul_rn(X, X), w, s[0]);
+  s[1] = __fma_rn(__dmul_rn(X, Y), w, s[1]);
+  s[2] = __fma_rn(__dmul_rn(X, Z), w, s[2]);
+  s[3] = __fma_rn(__dmul_rn(Y, Y), w, s[3]);
+  s[4] = __fma_rn(__dmul_rn(Y, Z), w, s[4]);
+  s[5] = __fma_rn(__dmul_rn(Z, Z), w, s[5]);
+  s[6] = __fma_rn(X, w, s[6]);
+  s[7] = __fma_rn(Y, w, s[7]);
+  s[8] = __fma_rn(Z, w, s[8]);
+}
+
+// Entries e, e + step, ... of the table, in that order. A row whose core
+// holds the whole table takes two entries an iteration (their loads in
+// flight together); a clamped row tests each entry against its core.
+template <bool kFull>
+__device__ __forceinline__ void walk(const Row& r, const int4* table,
+                                     int entries, int e, int step,
+                                     double* s) {
+  if (kFull) {
+    for (; e + step < entries; e += 2 * step) {
+      const int4 q0 = __ldg(table + e), q1 = __ldg(table + e + step);
+      accumulate(r, q0, s);
+      accumulate(r, q1, s);
+    }
+    if (e < entries) accumulate(r, __ldg(table + e), s);
+  } else {
+    for (; e < entries; e += step) {
+      const int4 q = __ldg(table + e);
+      const int dz = ((q.y >> 16) & 0xff) - 128;
+      const int dy = ((q.y >> 8) & 0xff) - 128;
+      const int dx = (q.y & 0xff) - 128;
+      if (within(dz, r.lz, r.hz) && within(dy, r.ly, r.hy) &&
+          within(dx, r.lx, r.hx))
+        accumulate(r, q, s);
+    }
   }
-  const int b = rows[4 * k];
-  const int z0 = rows[4 * k + 1], y0 = rows[4 * k + 2], x0 = rows[4 * k + 3];
-  const int sz = clip(z0 - rz, 1, nz - 1 - cz);
-  const int sy = clip(y0 - ry, 1, ny - 1 - cy);
-  const int sx = clip(x0 - rx, 1, nx - 1 - cx);
-  const size_t plane = static_cast<size_t>(ny) * nx;
-  const float* lv = level + static_cast<size_t>(b) * nz * plane;
+}
+
+__global__ void __launch_bounds__(kThreads) orient_levels_kernel(
+    const Sift3dOrientTable t, const int* __restrict__ rows,
+    double* __restrict__ a6, float* __restrict__ vd) {
+  int l = 0;
+  while (l + 1 < t.num_levels &&
+         static_cast<int>(blockIdx.x) >= t.lv[l + 1].block0)
+    ++l;
+  const Sift3dOrientLevel& L = t.lv[l];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int lw = L.log2_warps;
+  const int per_block = kWarps >> lw;
+  const int first = (blockIdx.x - L.block0) * per_block;
+  const int k = first + (warp >> lw);
+  const int piece = warp & ((1 << lw) - 1);
 
   double s[kSums];
 #pragma unroll
   for (int i = 0; i < kSums; ++i) s[i] = 0.0;
 
-  const int wplane = cy * cx;
-  const int nvox = cz * wplane;
-  for (int v = tid; v < nvox; v += kThreads) {
-    const int iz = v / wplane;
-    const int rem = v - iz * wplane;
-    const int iy = rem / cx;
-    const int ix = rem - iy * cx;
-    const int z = sz + iz, y = sy + iy, x = sx + ix;
-    const int dz = z - z0, dy = y - y0, dx = x - x0;
-    if (abs(dx) > rx || abs(dy) > ry || abs(dz) > rz) continue;
-    const float vx = __fmul_rn(static_cast<float>(dx), p.ux);
-    const float vy = __fmul_rn(static_cast<float>(dy), p.uy);
-    const float vz = __fmul_rn(static_cast<float>(dz), p.uz);
-    const float sq = __fadd_rn(__fadd_rn(__fmul_rn(vx, vx), __fmul_rn(vy, vy)),
-                               __fmul_rn(vz, vz));
-    if (!(sq <= p.rad2)) continue;
-    const float w = expf(__fdiv_rn(__fmul_rn(-0.5f, sq), p.sig2));
-
-    const size_t c = (static_cast<size_t>(z) * ny + y) * nx + x;
-    const float gx = central(lv[c + 1], lv[c - 1], p.inv_ux);
-    const float gy = central(lv[c + nx], lv[c - nx], p.inv_uy);
-    const float gz = central(lv[c + plane], lv[c - plane], p.inv_uz);
-
-    const double gx64 = gx, gy64 = gy, gz64 = gz, w64 = w;
-    s[0] = __dadd_rn(s[0], __dmul_rn(__dmul_rn(gx64, gx64), w64));
-    s[1] = __dadd_rn(s[1], __dmul_rn(__dmul_rn(gx64, gy64), w64));
-    s[2] = __dadd_rn(s[2], __dmul_rn(__dmul_rn(gx64, gz64), w64));
-    s[3] = __dadd_rn(s[3], __dmul_rn(__dmul_rn(gy64, gy64), w64));
-    s[4] = __dadd_rn(s[4], __dmul_rn(__dmul_rn(gy64, gz64), w64));
-    s[5] = __dadd_rn(s[5], __dmul_rn(__dmul_rn(gz64, gz64), w64));
-    s[6] = __dadd_rn(s[6], static_cast<double>(__fmul_rn(gx, w)));
-    s[7] = __dadd_rn(s[7], static_cast<double>(__fmul_rn(gy, w)));
-    s[8] = __dadd_rn(s[8], static_cast<double>(__fmul_rn(gz, w)));
+  if (k < L.count) {
+    const int* rw = rows + 4 * (L.row0 + k);
+    const int b = rw[0], z0 = rw[1], y0 = rw[2], x0 = rw[3];
+    const int sz = clip(z0 - L.rz, 1, L.nz - 1 - L.cz);
+    const int sy = clip(y0 - L.ry, 1, L.ny - 1 - L.cy);
+    const int sx = clip(x0 - L.rx, 1, L.nx - 1 - L.cx);
+    Row r;
+    r.nx = L.nx;
+    r.plane = L.ny * L.nx;
+    r.c = L.level + static_cast<size_t>(b) * L.nz * r.plane +
+          (static_cast<size_t>(z0) * L.ny + y0) * L.nx + x0;
+    r.lz = sz - z0, r.hz = r.lz + L.cz - 1;
+    r.ly = sy - y0, r.hy = r.ly + L.cy - 1;
+    r.lx = sx - x0, r.hx = r.lx + L.cx - 1;
+    r.inv_ux = L.inv_ux, r.inv_uy = L.inv_uy, r.inv_uz = L.inv_uz;
+    const bool full = r.lz <= -L.ez && r.hz >= L.ez && r.ly <= -L.ey &&
+                      r.hy >= L.ey && r.lx <= -L.ex && r.hx >= L.ex;
+    const int e = (piece << 5) + lane, step = 32 << lw;
+    if (full) walk<true>(r, L.table, L.entries, e, step, s);
+    else walk<false>(r, L.table, L.entries, e, step, s);
   }
 
 #pragma unroll
@@ -126,38 +210,45 @@ __global__ void __launch_bounds__(kThreads) orient_window_kernel(
     for (int off = 16; off > 0; off >>= 1)
       s[i] += __shfl_down_sync(0xffffffffu, s[i], off);
   __shared__ double part[kWarps][kSums];
-  const int warp = tid >> 5, lane = tid & 31;
   if (lane == 0) {
 #pragma unroll
     for (int i = 0; i < kSums; ++i) part[warp][i] = s[i];
   }
   __syncthreads();
-  if (tid == 0) {
-    for (int i = 0; i < kSums; ++i) {
-      double t = 0.0;
-      for (int w = 0; w < kWarps; ++w) t += part[w][i];
-      if (i < 6) a6[6 * k + i] = t;
-      else vd[3 * k + i - 6] = static_cast<float>(t);
-    }
+  // Each row's warps added in warp order.
+  for (int j = threadIdx.x; j < per_block * kSums; j += kThreads) {
+    const int rl = j / kSums, i = j - rl * kSums;
+    const int kk = first + rl;
+    if (kk >= L.rows) continue;
+    double sum = 0.0;
+    if (kk < L.count)
+      for (int p = 0; p < (1 << lw); ++p) sum += part[(rl << lw) + p][i];
+    const int row = L.row0 + kk;
+    if (i < 6) a6[6 * row + i] = sum;
+    else vd[3 * row + i - 6] = static_cast<float>(sum);
   }
 }
 
 }  // namespace
 
-// Structure-tensor sums for `num_rows` keypoints of one level bucket.
-// level (B, nz, ny, nx) f32; rows (num_rows, 4) i32 (volume, z, y, x);
-// cores and radii in (z, y, x) order; a6 (num_rows, 6) f64 and
-// vd (num_rows, 3) f32 outputs. Returns cudaGetLastError() after the
-// launch.
-extern "C" int sift3d_orient_window(
-    const float* level, int nz, int ny, int nx, const int* rows,
-    int num_rows, int count, int cz, int cy, int cx, int rz, int ry, int rx,
-    float ux, float uy, float uz, float inv_ux, float inv_uy, float inv_uz,
-    float rad2, float sig2, double* a6, float* vd, void* stream) {
-  if (num_rows <= 0) return 0;
-  const Params p{ux, uy, uz, inv_ux, inv_uy, inv_uz, rad2, sig2};
-  orient_window_kernel<<<num_rows, kThreads, 0,
-                         static_cast<cudaStream_t>(stream)>>>(
-      level, nz, ny, nx, rows, count, cz, cy, cx, rz, ry, rx, p, a6, vd);
+// Structure-tensor sums of the rows of `num_levels` levels in one launch.
+// levels: host array of Sift3dOrientLevel (row ranges consecutive, block0
+// ascending); rows (sum of rows, 4) i32 (volume, z, y, x); a6 (rows, 6)
+// f64 and vd (rows, 3) f32 outputs; num_blocks the grid. Returns
+// cudaGetLastError() after the launch, or cudaErrorInvalidValue for more
+// than kMaxLevels levels.
+extern "C" int sift3d_orient_levels(const Sift3dOrientLevel* levels,
+                                    int num_levels, int num_blocks,
+                                    const int* rows, double* a6, float* vd,
+                                    void* stream) {
+  if (num_levels > kMaxLevels || num_levels < 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (num_blocks <= 0) return 0;
+  Sift3dOrientTable t;
+  for (int i = 0; i < num_levels; ++i) t.lv[i] = levels[i];
+  t.num_levels = num_levels;
+  orient_levels_kernel<<<num_blocks, kThreads, 0,
+                         static_cast<cudaStream_t>(stream)>>>(t, rows, a6,
+                                                              vd);
   return static_cast<int>(cudaGetLastError());
 }

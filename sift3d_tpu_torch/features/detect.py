@@ -8,7 +8,8 @@ preserving the reference's (octave, level, z, y, x) emission order.
 
 Detection runs on a (B, nz, ny, nx) batch of volumes of one shape (one
 volume is a batch of one): each level is one set of launches for the
-whole batch, and its keypoint rows carry their volume index.
+whole batch, and its keypoint rows carry their volume index; orientation
+is one launch for every level.
 """
 
 from __future__ import annotations
@@ -57,40 +58,40 @@ def detect_extrema_levels(dog: dict, plan, params: SIFT3DParams) -> dict:
         for o, s in kp_levels(plan)}
 
 
+def keypoint_levels(gpyr: dict, extrema_levels: dict, plan):
+    """Per keypoint level, in ``kp_levels`` order, (level, extrema rows
+    (n, 4), sd, units): ``orientation.assign_orientations_levels``'
+    input."""
+    return [(gpyr[(o, s)], extrema_levels[(o, s)][0],
+             plan.gpyr_level(o, s).scale, plan.octave_units(o))
+            for o, s in kp_levels(plan)]
+
+
 def orient_levels(gpyr: dict, extrema_levels: dict, plan,
                   params: SIFT3DParams):
     """Stage B: orientation + compaction of every level's extrema, over a
     batch: ``gpyr`` levels (B, nz, ny, nx) and ``extrema_levels`` in the
     batch form ((n, 4) rows (volume, z, y, x)).
 
-    One orientation launch per level covers every volume. Returns (kp,
-    vol): the kept keypoints of all volumes in (level, volume, scan)
+    One orientation launch covers every level and every volume. Returns
+    (kp, vol): the kept keypoints of all volumes in (level, volume, scan)
     order, with count == capacity, and the (n,) volume index of each row.
     """
-    levels = kp_levels(plan)
-    rows, A6, vd, lvl = [], [], [], []
-    for i, (o, s) in enumerate(levels):
-        r = extrema_levels[(o, s)][0]
-        a6, v = orientation.level_terms(
-            gpyr[(o, s)], r[:, 1:], plan.gpyr_level(o, s).scale,
-            plan.octave_units(o), vol=r[:, 0])
-        rows.append(r)
-        A6.append(a6)
-        vd.append(v)
-        lvl.append(torch.full((r.shape[0],), i, device=r.device))
-    R, valid = orientation.orientations_from_tensor(
-        torch.cat(A6), torch.cat(vd), params.corner_thresh)
+    levels = keypoint_levels(gpyr, extrema_levels, plan)
+    rows, R, valid = orientation.assign_orientations_levels(
+        levels, params.corner_thresh)
     keep = torch.nonzero(valid).reshape(-1)      # the stage's host sync
-    rows, R, lvl = torch.cat(rows)[keep], R[keep], torch.cat(lvl)[keep]
-    dev = rows.device
-    os_ = torch.as_tensor(np.array([o for o, _ in levels], np.int32),
-                          device=dev)
-    ss = torch.as_tensor(np.array([s for _, s in levels], np.int32),
-                         device=dev)
-    sds = torch.as_tensor([plan.gpyr_level(o, s).scale for o, s in levels],
-                          dtype=F64, device=dev)
+    # Each row's (o, s, sd), from the (levels, 4) table of (o, s, sd, rows)
+    # copied once.
+    table = torch.tensor([(o, s, sd, r.shape[0]) for (o, s), (_, r, sd, _)
+                          in zip(kp_levels(plan), levels)], dtype=F64,
+                         device=rows.device)
+    per_row = torch.repeat_interleave(table[:, :3], table[:, 3].long(), 0,
+                                      output_size=rows.shape[0])[keep]
+    rows, R = rows[keep], R[keep]
     kp = Keypoints(x=rows[:, 3].to(F64), y=rows[:, 2].to(F64),
-                   z=rows[:, 1].to(F64), o=os_[lvl], s=ss[lvl], sd=sds[lvl],
+                   z=rows[:, 1].to(F64), o=per_row[:, 0].to(torch.int32),
+                   s=per_row[:, 1].to(torch.int32), sd=per_row[:, 2],
                    R=R.float(), count=int(keep.shape[0]))
     return kp, rows[:, 0].long()
 

@@ -17,8 +17,10 @@ sift3d/sift.c:1259-1514) on the eager window path of
   gradient)|, rejected if < corner_thresh (sift.c:1446-1492).
 
 All keypoints of a level share one window box. The nine window sums come
-from ``ops/cuda_orient.orient_terms``: the CUDA kernel on the card, its
-plain PyTorch version on the CPU, for the rows of one volume or of a batch.
+from ``ops/cuda_orient``: the CUDA kernel on the card, its plain PyTorch
+version on the CPU, for the rows of one volume or of a batch, one level
+(``orient_terms``) or every level of a detection at once
+(``orient_terms_levels``, whose arguments ``levels_args`` builds).
 """
 
 from __future__ import annotations
@@ -30,7 +32,7 @@ import torch
 
 from ..config import MAX_EIG_RATIO, ORI_GRAD_THRESH, ORI_RAD_FCTR, ORI_SIG_FCTR
 from ..dtypes import F64
-from ..ops.cuda_orient import orient_terms
+from ..ops.cuda_orient import orient_terms, orient_terms_levels
 from ..ops.eig import eigh3x3
 from .windows import window_extent
 
@@ -61,6 +63,32 @@ def level_terms(level: torch.Tensor, zyx: torch.Tensor, sd: float, units,
     sigma, rad, radii, cores = level_geometry(sd, units, level.shape[-3:])
     return orient_terms(level, zyx, zyx.shape[0], radii, cores, units,
                         sigma, rad, vol=vol)
+
+
+def levels_args(levels):
+    """``orient_terms_levels``' arguments for the keypoint rows of many
+    levels: ``levels`` holds, per level, (level (B, nz, ny, nx), rows (n, 4)
+    integer (volume, z, y, x), sd, units). Returns the rows of all levels,
+    concatenated once, and the per-level argument tuples."""
+    args = []
+    for level, rows, sd, units in levels:
+        sigma, rad, radii, cores = level_geometry(sd, units, level.shape[-3:])
+        n = rows.shape[0]
+        args.append((level, n, n, radii, cores, units, sigma, rad))
+    return torch.cat([lv[1] for lv in levels]), args
+
+
+def assign_orientations_levels(levels, corner_thresh: float):
+    """Assign orientations to the keypoint rows of many levels (``levels``
+    as ``levels_args`` takes them) in one kernel launch.
+
+    Returns (rows (N, 4) concatenated, R (N, 3, 3) float32, valid (N,)
+    bool).
+    """
+    rows, args = levels_args(levels)
+    A6, vd = orient_terms_levels(rows, args)
+    R, valid = orientations_from_tensor(A6, vd, corner_thresh)
+    return rows, R, valid
 
 
 def assign_orientations_level(level: torch.Tensor, zyx: torch.Tensor,

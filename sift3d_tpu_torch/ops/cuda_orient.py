@@ -11,16 +11,26 @@ fp32 gradients and weights as the JAX package's eager path does
 (``sift3d_tpu/features/orientation.py:_window_terms``), and the window
 gradient w gi. Rows at or past ``count`` are zero.
 
-- ``orient_terms`` is the entry point: it launches the kernel for a CUDA
-  tensor and runs ``orient_terms_plain`` for a CPU tensor. There is no
-  fallback from the kernel to the plain version.
-- A row may come from any volume of a batch: with ``vol`` given, the level
-  is (B, nz, ny, nx) and row k reads volume ``vol[k]``, in place. The TPU
-  version gathers a stacked (B*K, wz, wy, wx) copy of the windows first;
-  the kernel does not.
-- On the H100 the kernel is bound by its float64 sums (see
-  ``orient_work`` for the counts), which keep the keypoint rows exact: an
-  fp32 sum can flip the 0.90 eigenvalue-ratio or the corner test.
+- ``orient_terms_levels`` is the entry point: the rows of every level of a
+  detection in one kernel launch for CUDA tensors (one per MAX_LEVELS
+  levels with rows, ``level_groups``), and a loop of
+  ``orient_terms_plain`` over the levels for CPU tensors
+  (``orient_terms_levels_plain``). There is no fallback from the kernel to
+  the plain version.
+- ``orient_terms`` is its one-level case, with the rows given as centres
+  and an optional volume index.
+- A row may come from any volume of a batch: row k of a (B, nz, ny, nx)
+  level reads volume ``vol[k]``, in place. The TPU version gathers a
+  stacked (B*K, wz, wy, wx) copy of the windows first; the kernel does not.
+- The kernel walks, per level, the list of window offsets inside the
+  sphere with their weights (``offset_table``), built once per level
+  geometry with the plain version's own operations and cached, so that
+  masks and weights are the plain version's bit for bit; a row's list is
+  split over ``warps_per_row`` warps.
+- The float64 sums keep the keypoint rows exact (an fp32 sum can flip the
+  0.90 eigenvalue-ratio or the corner test); on the H100 they set the
+  function's bound (``orient_work`` counts it), while the kernel's time
+  is set by its level loads (see the source's header).
 """
 
 from __future__ import annotations
@@ -37,6 +47,15 @@ from ..features.windows import (batch_view, gather_windows, window_gradients,
 
 # Window voxels per chunk of the plain version (bounds its temporaries).
 _CHUNK_VOXELS = 1 << 22
+# The kernel's limits: levels per launch (its parameter table; more levels
+# take more launches), rows per block (warps of a 256-thread block), table
+# offsets per axis (packed in a byte each).
+MAX_LEVELS = 32
+WARPS = 8
+MAX_EXTENT = 127
+# Table entries a warp should walk at most: a row's list is split over
+# more warps (up to WARPS) until it does.
+ENTRIES_PER_WARP = 512
 
 
 def _constants(units, sigma: float, rad: float) -> dict:
@@ -51,6 +70,18 @@ def _constants(units, sigma: float, rad: float) -> dict:
                 rad2=float(rad32 * rad32), sig2=float(sig32 * sig32))
 
 
+def _sq(dz, dy, dx, g):
+    """|v|^2 of integer offsets (broadcastable long tensors), in fp32."""
+    vx = dx.float() * g["ux"]
+    vy = dy.float() * g["uy"]
+    vz = dz.float() * g["uz"]
+    return vx * vx + vy * vy + vz * vz
+
+
+def _weight(sq, g):
+    return torch.exp(-0.5 * sq / g["sig2"])
+
+
 def _frame(shape, zyx, radii, cores, g):
     """Window starts, |v|^2 (C, cz, cy, cx) and the mask |d| <= R per axis
     of a chunk of rows with integer centres ``zyx`` (C, 3)."""
@@ -63,11 +94,7 @@ def _frame(shape, zyx, radii, cores, g):
     dx = d[2][:, None, None, :]
     Rz, Ry, Rx = radii
     in_box = ((dx.abs() <= Rx) & (dy.abs() <= Ry) & (dz.abs() <= Rz))
-    vx = dx.float() * g["ux"]
-    vy = dy.float() * g["uy"]
-    vz = dz.float() * g["uz"]
-    sq = vx * vx + vy * vy + vz * vz
-    return starts, sq, in_box
+    return starts, _sq(dz, dy, dx, g), in_box
 
 
 def _plain_chunk(level, vol, zyx, radii, cores, units, g):
@@ -75,7 +102,7 @@ def _plain_chunk(level, vol, zyx, radii, cores, units, g):
     mask = in_box & (sq <= g["rad2"])
     gx, gy, gz = window_gradients(gather_windows(level, vol, starts, cores),
                                   units)
-    w = torch.exp(-0.5 * sq / g["sig2"])
+    w = _weight(sq, g)
     w = torch.where(mask, w, torch.zeros_like(w))
     gx64, gy64, gz64, w64 = (t.to(F64) for t in (gx, gy, gz, w))
     dims = (1, 2, 3)
@@ -109,19 +136,193 @@ def orient_terms_plain(level, zyx, count: int, radii, cores, units,
     return A6, vd
 
 
+def orient_terms_levels_plain(rows, levels):
+    """``orient_terms_levels``' plain version: ``orient_terms_plain`` on
+    each level's rows, concatenated."""
+    A6, vd, r0 = [], [], 0
+    for level, n, count, *geom in levels:
+        r = rows[r0:r0 + n]
+        a, v = orient_terms_plain(level, r[:, 1:], count, *geom,
+                                  vol=r[:, 0])
+        A6.append(a)
+        vd.append(v)
+        r0 += n
+    dev = rows.device if not levels else levels[0][0].device
+    if not A6:
+        return (torch.zeros((0, 6), dtype=F64, device=dev),
+                torch.zeros((0, 3), dtype=torch.float32, device=dev))
+    return torch.cat(A6), torch.cat(vd)
+
+
+def table_extents(radii, cores) -> tuple[int, int, int]:
+    """(z, y, x) extents of a level's offset table: |d| <= min(R, core - 1)
+    per axis. A row's centre lies in its core, so a voxel of its core is at
+    most core - 1 from it."""
+    return tuple(min(r, c - 1) for r, c in zip(radii, cores))
+
+
+def _pack(dz, dy, dx):
+    return ((dz + 128) << 16) | ((dy + 128) << 8) | (dx + 128)
+
+
+def unpack(packed):
+    """(dz, dy, dx) of the table's packed offsets (the kernel's rule)."""
+    return (((packed >> 16) & 0xFF) - 128, ((packed >> 8) & 0xFF) - 128,
+            (packed & 0xFF) - 128)
+
+
+def offset_table(shape, radii, cores, units, sigma: float, rad: float,
+                 device) -> torch.Tensor:
+    """(E, 4) int32 list of a level's window offsets d inside the sphere
+    (|d| <= ``table_extents`` per axis, |v|^2 <= rad^2), in (dz, dy, dx)
+    order: the level offset (dz ny + dy) nx + dx, the packed offset
+    (``unpack``) and the weight w as a float64's two 32-bit words. |v|^2,
+    the mask and w are formed by the plain version's operations on
+    ``device``, so they are its values bit for bit."""
+    g = _constants(units, sigma, rad)
+    ext = table_extents(radii, cores)
+    if max(ext) > MAX_EXTENT:
+        raise ValueError(f"orient_window: window extents {ext} exceed "
+                         f"{MAX_EXTENT}")
+    d = [torch.arange(-e, e + 1, device=device) for e in ext]
+    sq = _sq(d[0][:, None, None], d[1][None, :, None], d[2][None, None, :], g)
+    mask = sq <= g["rad2"]
+    w = _weight(sq, g)[mask].to(F64)
+    dz, dy, dx = (i - e for i, e in zip(torch.nonzero(mask, as_tuple=True),
+                                         ext))
+    ny, nx = shape[-2:]
+    off = (dz * ny + dy) * nx + dx
+    return torch.cat([torch.stack([off, _pack(dz, dy, dx)], 1).to(torch.int32),
+                      w.view(torch.int32).reshape(-1, 2)], 1).contiguous()
+
+
+def warps_per_row(entries: int) -> int:
+    """Warps that split one row's table walk: the least power of two up to
+    WARPS that leaves each at most ENTRIES_PER_WARP entries."""
+    p = 1
+    while p < WARPS and p * ENTRIES_PER_WARP < entries:
+        p *= 2
+    return p
+
+
+class _Level(ctypes.Structure):
+    """The kernel's ``Sift3dOrientLevel`` (``csrc/orient_window.cu``)."""
+    _fields_ = ([("level", ctypes.c_void_p), ("table", ctypes.c_void_p)] +
+                [(f, ctypes.c_int) for f in (
+                    "nz", "ny", "nx", "cz", "cy", "cx", "rz", "ry", "rx",
+                    "ez", "ey", "ex", "entries", "log2_warps", "row0", "rows",
+                    "count", "block0")] +
+                [(f, ctypes.c_float) for f in ("inv_ux", "inv_uy", "inv_uz")])
+
+
+_statics: dict = {}
+
+
+def _level_static(shape, radii, cores, units, sigma, rad, device):
+    """(the kernel's ``_Level`` with the fields that depend on the level's
+    geometry alone, rows per block, the offset table), cached per geometry
+    and device: detections of one plan reuse them."""
+    key = (str(device), tuple(shape), tuple(radii), tuple(cores),
+           tuple(units), sigma, rad)
+    st = _statics.get(key)
+    if st is None:
+        tab = offset_table(shape, radii, cores, units, sigma, rad, device)
+        P = warps_per_row(tab.shape[0])
+        g = _constants(units, sigma, rad)
+        lv = _Level(0, tab.data_ptr(), *shape, *cores, *radii,
+                    *table_extents(radii, cores), tab.shape[0],
+                    P.bit_length() - 1, 0, 0, 0, 0, g["inv_ux"], g["inv_uy"],
+                    g["inv_uz"])
+        st = _statics[key] = (lv, WARPS // P, tab)
+    return st
+
+
 def _kernel_fn():
-    fn = _build.load("orient_window").sift3d_orient_window
+    fn = _build.load("orient_window").sift3d_orient_levels
     if fn.argtypes is None:
-        P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        fn.argtypes = [P, I, I, I, P, I, I, I, I, I, I, I, I,
-                       F, F, F, F, F, F, F, F, P, P, P]
+        P, I = ctypes.c_void_p, ctypes.c_int
+        fn.argtypes = [P, I, I, P, P, P, P]
         fn.restype = ctypes.c_int
     return fn
 
 
+def level_groups(levels) -> list[list[int]]:
+    """The launches of one ``orient_terms_levels`` call: the indices of
+    the levels with rows, in order, in groups of at most MAX_LEVELS (one
+    group, so one launch, at every configuration the repo runs)."""
+    used = [i for i, lv in enumerate(levels) if lv[1]]
+    return [used[j:j + MAX_LEVELS] for j in range(0, len(used), MAX_LEVELS)]
+
+
+def orient_terms_levels(rows, levels):
+    """Structure-tensor sums of the rows of many levels, one launch per
+    ``level_groups`` group.
+
+    Args:
+      rows: (N, 4) integer rows (volume, z, y, x) of all levels, level by
+        level, in level voxel coords.
+      levels: per level, (level, n, count, radii, cores, units, sigma, rad):
+        the (B, nz, ny, nx) (or (nz, ny, nx)) f32 Gaussian level, its next
+        n rows of ``rows``, of which those at or past ``count`` come back
+        as zeros, the (z, y, x) window half-extents and clamped core
+        extents, (ux, uy, uz), and the Gaussian width and window radius
+        (mm).
+
+    Returns (A6 (N, 6) float64 [xx, xy, xz, yy, yz, zz], vd (N, 3) float32).
+    """
+    dev = rows.device
+    if any(lv[0].device != dev for lv in levels):
+        raise ValueError("orient_terms_levels: rows and levels on different "
+                         "devices")
+    if dev.type == "cpu":
+        return orient_terms_levels_plain(rows, levels)
+    if dev.type != "cuda":
+        raise ValueError(f"orient_terms_levels: unsupported device {dev}")
+    if any(lv[0].dtype != torch.float32 or lv[0].ndim not in (3, 4)
+           for lv in levels):
+        raise ValueError("orient_terms_levels: a level must be a 3-D or 4-D "
+                         "float32 tensor")
+    N = rows.shape[0]
+    row0 = np.cumsum([0] + [lv[1] for lv in levels]).tolist()
+    if row0[-1] != N:
+        raise ValueError("orient_terms_levels: the levels' row counts do not "
+                         "add up to the rows")
+    A6 = torch.empty((N, 6), dtype=F64, device=dev)
+    vd = torch.empty((N, 3), dtype=torch.float32, device=dev)
+    rows = rows.to(torch.int32).contiguous()
+    # The levels' contiguous copies, held until their kernels are queued:
+    # the table passes only their addresses.
+    held = []
+    for group in level_groups(levels):
+        table = (_Level * len(group))()
+        block0 = 0
+        for i, j in enumerate(group):
+            level, n, count, radii, cores, units, sigma, rad = levels[j]
+            level = level.contiguous()
+            held.append(level)
+            lv, per_block, _ = _level_static(level.shape[-3:], radii, cores,
+                                             units, sigma, rad, dev)
+            table[i] = lv
+            e = table[i]
+            e.level, e.block0 = level.data_ptr(), block0
+            e.row0, e.rows, e.count = row0[j], n, min(max(int(count), 0), n)
+            block0 += -(-n // per_block)
+        err = _kernel_fn()(
+            ctypes.addressof(table), len(group), block0, rows.data_ptr(),
+            A6.data_ptr(), vd.data_ptr(),
+            torch.cuda.current_stream(dev).cuda_stream)
+        _build.check(err, "orient_window launch")
+        orient_terms_levels.launches += 1
+    return A6, vd
+
+
+orient_terms_levels.launches = 0
+
+
 def orient_terms(level, zyx, count: int, radii, cores, units, sigma: float,
                  rad: float, vol=None):
-    """Structure-tensor sums of one level bucket.
+    """Structure-tensor sums of one level bucket (``orient_terms_levels``
+    with one level).
 
     Args:
       level: (nz, ny, nx) f32 Gaussian pyramid level, or (B, nz, ny, nx)
@@ -137,51 +338,33 @@ def orient_terms(level, zyx, count: int, radii, cores, units, sigma: float,
     if level.device.type == "cpu":
         return orient_terms_plain(level, zyx, count, radii, cores, units,
                                   sigma, rad, vol)
-    if level.device.type != "cuda":
-        raise ValueError(f"orient_terms: unsupported device {level.device}")
-    if level.dtype != torch.float32 or level.ndim not in (3, 4):
-        raise ValueError("orient_terms: level must be a 3-D or 4-D float32 "
-                         "tensor")
     K = zyx.shape[0]
     level, vol = batch_view(level, K, vol)
-    level = level.contiguous()
     rows = torch.cat([vol[:, None], zyx.to(device=level.device,
                                            dtype=torch.long)], 1)
-    rows = rows.to(torch.int32).contiguous()
-    A6 = torch.empty((K, 6), dtype=F64, device=level.device)
-    vd = torch.empty((K, 3), dtype=torch.float32, device=level.device)
-    if K == 0:
-        return A6, vd
-    g = _constants(units, sigma, rad)
-    err = _kernel_fn()(
-        level.data_ptr(), *level.shape[1:], rows.data_ptr(), K,
-        min(int(count), K), *cores, *radii,
-        g["ux"], g["uy"], g["uz"], g["inv_ux"], g["inv_uy"], g["inv_uz"],
-        g["rad2"], g["sig2"], A6.data_ptr(), vd.data_ptr(),
-        torch.cuda.current_stream(level.device).cuda_stream)
-    _build.check(err, "orient_window launch")
-    orient_terms.launches += 1
-    return A6, vd
+    return orient_terms_levels(rows, [(level, K, count, radii, cores, units,
+                                       sigma, rad)])
 
 
-orient_terms.launches = 0
-
-# Operations of the kernel for a voxel inside the box and the sphere: fp32
-# displacement 3, |v|^2 5, Gaussian weight 3, gradients 9, weighted
-# gradient 3; fp64 six products of three factors 12 and nine sums. A voxel
-# of the box outside the sphere costs the displacement and |v|^2.
-OPS32_ACTIVE_VOXEL = 23
-OPS64_ACTIVE_VOXEL = 21
-OPS32_BOX_VOXEL = 8
+# Operations the function needs (each add, multiply, comparison,
+# division or exp counts one): per offset of a level's table box, once a
+# call (the weights depend on the offset alone), the displacement 3,
+# |v|^2 5, the sphere test 1 and the weight 3; per voxel in the box and the
+# sphere, the fp32 gradients 9 and in fp64 the three products w gi, the
+# six products (w gi) gj and the nine sums (as the TPU kernel forms them).
+OPS32_OFFSET = 12
+OPS32_VOXEL = 9
+OPS64_VOXEL = 18
 
 
 def orient_work(level, zyx, count: int, radii, cores, units, sigma: float,
-                rad: float, vol=None) -> tuple[int, int, int]:
-    """(bytes, fp32 operations, fp64 operations) that one ``orient_terms``
-    call needs on these inputs: the union of the rows' windows (core +
-    halo) read once per volume, each row's 4 ints read and its 6 doubles
-    and 3 floats written; the operations counted from the voxels of each
-    row's core that pass the box and sphere tests."""
+                rad: float, vol=None) -> tuple[int, int, int, int]:
+    """(bytes, fp32 operations, fp64 operations, voxels counted) that one
+    level's rows need (``orient_terms``' arguments): the union of the rows'
+    windows (core + halo) read once per volume, each row's 4 ints read and
+    its 6 doubles and 3 floats written; the operations from ``OPS_*`` over
+    the level's table box and the voxels of each row's core that pass the
+    box and sphere tests."""
     K = zyx.shape[0]
     level, vol = batch_view(level, K, vol)
     n = min(int(count), K)
@@ -190,12 +373,24 @@ def orient_work(level, zyx, count: int, radii, cores, units, sigma: float,
     starts = window_starts(level.shape[1:], zyx, radii, cores)
     nbytes = (4 * window_union(level.shape, vol[:n], starts, cores) +
               16 * n + K * (6 * 8 + 3 * 4))
-    in_box = active = 0
+    active = 0
     chunk = max(1, _CHUNK_VOXELS // (cores[0] * cores[1] * cores[2]))
     for k0 in range(0, n, chunk):
         _, sq, box = _frame(level.shape[1:], zyx[k0:k0 + chunk], radii,
                             cores, g)
-        in_box += int(box.sum())
         active += int((box & (sq <= g["rad2"])).sum())
-    ops32 = active * OPS32_ACTIVE_VOXEL + (in_box - active) * OPS32_BOX_VOXEL
-    return nbytes, ops32, active * OPS64_ACTIVE_VOXEL
+    offsets = int(np.prod([2 * e + 1 for e in table_extents(radii, cores)]))
+    ops32 = active * OPS32_VOXEL + (offsets * OPS32_OFFSET if n else 0)
+    return nbytes, ops32, active * OPS64_VOXEL, active
+
+
+def orient_work_levels(rows, levels) -> tuple[int, int, int, int]:
+    """``orient_work`` summed over the levels of one
+    ``orient_terms_levels`` call (its arguments)."""
+    tot, r0 = (0, 0, 0, 0), 0
+    for level, n, count, *geom in levels:
+        r = rows[r0:r0 + n]
+        w = orient_work(level, r[:, 1:], count, *geom, vol=r[:, 0])
+        tot = tuple(a + b for a, b in zip(tot, w))
+        r0 += n
+    return tot

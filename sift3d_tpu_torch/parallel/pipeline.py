@@ -3,9 +3,10 @@
 The port of ``batch_detect_describe`` and ``batch_register_pairs``
 (``sift3d_tpu/parallel/pipeline.py``) on their unsharded branch: a batch
 of B volumes of one shape runs each pyramid blur as one matmul over the
-batch, each level's extrema as one pass, each level bucket's orientation
-and descriptor windows as one kernel launch over the rows of all B
-volumes, and matching and RANSAC as batched tensor algebra over the B
+batch, each level's extrema as one pass, the orientation windows of
+every level as one kernel launch and each level bucket's descriptor
+windows as one, over the rows of all B volumes, and matching and RANSAC
+as batched tensor algebra over the B
 pairs. There is no mesh: the batch lives on one device. The stages run
 inside the same ``sift3d.<stage>`` profiler spans as the single-volume
 path (``api.py``).

@@ -118,11 +118,11 @@ def test_orient_window_kernel_matches_plain(cuda, units):
     args = (count, radii, cores, units, sigma, rad)
     A_want, vd_want = cuda_orient.orient_terms_plain(levels, zyx, *args,
                                                      vol=vol)
-    before = cuda_orient.orient_terms.launches
+    before = cuda_orient.orient_terms_levels.launches
     A_got, vd_got = cuda_orient.orient_terms(levels.to(cuda), zyx.to(cuda),
                                              *args, vol=vol.to(cuda))
     torch.cuda.synchronize()
-    assert cuda_orient.orient_terms.launches == before + 1
+    assert cuda_orient.orient_terms_levels.launches == before + 1
     assert A_got.dtype == torch.float64 and vd_got.dtype == torch.float32
     A_got, vd_got = A_got.cpu(), vd_got.cpu()
     assert torch.all(A_got[count:] == 0) and torch.all(vd_got[count:] == 0)
@@ -130,6 +130,117 @@ def test_orient_window_kernel_matches_plain(cuda, units):
                                                                       True)
     assert ((A_got - A_want).abs() <= 1e-5 * scale).all()
     assert ((vd_got - vd_want).abs().double() <= 1e-5 * scale).all()
+
+
+def test_orient_window_kernel_levels_one_launch(cuda):
+    """Kernel 3 over three levels of different shapes (one anisotropic, one
+    clamped to n - 2) and three volumes in one launch, with rows past each
+    level's count: within 1e-5 of each row's largest term of the plain
+    version, and a second launch gives the same bits."""
+    rng = np.random.default_rng(6)
+    specs = [((24, 28, 20), (1.0, 1.0, 1.0), 1.6, 40, 33),
+             ((18, 16, 22), (1.0, 1.3, 0.8), 1.5, 25, 25),
+             ((8, 8, 8), (2.0, 2.0, 2.0), 3.2, 9, 6)]
+    rows, args = [], []
+    for shape, units, sd, n, count in specs:
+        levels = torch.as_tensor(np.stack([_level(rng, shape)
+                                           for _ in range(3)]))
+        zyx = np.stack([rng.integers(1, m - 1, n) for m in shape], -1)
+        zyx[0] = (1, 1, 1)
+        zyx[1] = tuple(m - 2 for m in shape)
+        vol = rng.integers(0, 3, n)
+        rows.append(np.concatenate([vol[:, None], zyx], 1))
+        sigma, rad, radii, cores = level_geometry(sd, units, shape)
+        args.append((levels, n, count, radii, cores, units, sigma, rad))
+    rows = torch.as_tensor(np.concatenate(rows).astype(np.int32))
+    A_want, vd_want = cuda_orient.orient_terms_levels(rows, args)
+    args_d = [(a[0].to(cuda), *a[1:]) for a in args]
+    before = cuda_orient.orient_terms_levels.launches
+    A_got, vd_got = cuda_orient.orient_terms_levels(rows.to(cuda), args_d)
+    torch.cuda.synchronize()
+    assert cuda_orient.orient_terms_levels.launches == before + 1
+    A2, vd2 = cuda_orient.orient_terms_levels(rows.to(cuda), args_d)
+    torch.cuda.synchronize()
+    assert torch.equal(A_got, A2) and torch.equal(vd_got, vd2)
+    A_got, vd_got = A_got.cpu(), vd_got.cpu()
+    r0 = 0
+    for _, n, count, *_ in args:
+        assert not A_got[r0 + count:r0 + n].any()
+        assert not vd_got[r0 + count:r0 + n].any()
+        r0 += n
+    scale = torch.cat([A_want.abs(), vd_want.abs().double()], 1).amax(1,
+                                                                      True)
+    assert ((A_got - A_want).abs() <= 1e-5 * scale).all()
+    assert ((vd_got - vd_want).abs().double() <= 1e-5 * scale).all()
+    dev = torch.cat([(A_got - A_want).abs(),
+                     (vd_got - vd_want).abs().double()], 1)
+    print(f"orient levels: max rel dev "
+          f"{(dev / scale.clamp(min=1e-300)).max().item():.3e}")
+
+
+def _rel_dev(got, want):
+    """Largest deviation of the kernel's (A6, vd) from the plain version's,
+    relative to each row's largest |term|."""
+    scale = torch.cat([want[0].abs(), want[1].abs().double()], 1).amax(1,
+                                                                       True)
+    dev = torch.cat([(got[0].cpu() - want[0]).abs(),
+                     (got[1].cpu() - want[1]).abs().double()], 1)
+    return (dev / scale.clamp(min=1e-300)).max().item()
+
+
+def test_orient_window_kernel_more_levels_than_a_launch(cuda):
+    """35 levels with rows (and two without) take two launches, one per
+    group of MAX_LEVELS: within 1e-5 of the plain version."""
+    rng = np.random.default_rng(9)
+    rows, args = [], []
+    for i in range(37):
+        shape = (10 + i % 4, 12 - i % 3, 9 + i % 5)
+        units = (1.0, 1.0, 1.0) if i % 2 else (1.0, 1.3, 0.8)
+        n = 0 if i in (3, 20) else 2 + i % 4
+        levels = torch.as_tensor(np.stack([_level(rng, shape)
+                                           for _ in range(2)]))
+        zyx = np.stack([rng.integers(1, m - 1, n) for m in shape], -1)
+        vol = rng.integers(0, 2, n)
+        rows.append(np.concatenate([vol[:, None], zyx], 1))
+        sigma, rad, radii, cores = level_geometry(1.2 + 0.05 * i, units,
+                                                  shape)
+        args.append((levels, n, max(n - i % 2, 0), radii, cores, units,
+                     sigma, rad))
+    assert len(cuda_orient.level_groups(args)) == 2
+    rows = torch.as_tensor(np.concatenate(rows).astype(np.int32))
+    want = cuda_orient.orient_terms_levels_plain(rows, args)
+    args_d = [(a[0].to(cuda), *a[1:]) for a in args]
+    before = cuda_orient.orient_terms_levels.launches
+    got = cuda_orient.orient_terms_levels(rows.to(cuda), args_d)
+    torch.cuda.synchronize()
+    assert cuda_orient.orient_terms_levels.launches == before + 2
+    assert _rel_dev(got, want) <= 1e-5
+
+
+def test_orient_window_kernel_noncontiguous_levels(cuda):
+    """Two levels that are slices of larger tensors (the wrapper makes
+    contiguous copies and holds them until the launch) in one launch."""
+    rng = np.random.default_rng(10)
+    big = torch.as_tensor(np.stack([_level(rng, (26, 30, 28))
+                                    for _ in range(3)]))
+    levels = [big[:, 1:25, 2:28, 3:23], big.transpose(2, 3)[:, :, :22]]
+    rows, args = [], []
+    for lv, units in zip(levels, [(1.0, 1.0, 1.0), (1.0, 1.3, 0.8)]):
+        shape = tuple(lv.shape[1:])
+        zyx = np.stack([rng.integers(1, m - 1, 12) for m in shape], -1)
+        vol = rng.integers(0, 3, 12)
+        rows.append(np.concatenate([vol[:, None], zyx], 1))
+        sigma, rad, radii, cores = level_geometry(1.6, units, shape)
+        args.append((lv, 12, 12, radii, cores, units, sigma, rad))
+    rows = torch.as_tensor(np.concatenate(rows).astype(np.int32))
+    want = cuda_orient.orient_terms_levels_plain(rows, args)
+    big_d = big.to(cuda)
+    args_d = [(big_d[:, 1:25, 2:28, 3:23], *args[0][1:]),
+              (big_d.transpose(2, 3)[:, :, :22], *args[1][1:])]
+    assert not any(a[0].is_contiguous() for a in args_d)
+    got = cuda_orient.orient_terms_levels(rows.to(cuda), args_d)
+    torch.cuda.synchronize()
+    assert _rel_dev(got, want) <= 1e-5
 
 
 def test_match_kernel_matches_plain_and_dense(cuda):

@@ -85,7 +85,7 @@ def test_entry_points_pin_full_fp32():
 def test_wrappers_run_plain_on_cpu_without_counting():
     before = (cuda_window.descrip_window.launches,
               cuda_match.reduce_one_way.launches,
-              cuda_orient.orient_terms.launches)
+              cuda_orient.orient_terms_levels.launches)
     level = torch.zeros((12, 12, 12))
     out = cuda_window.descrip_window(
         level, torch.full((2, 3), 6.0), torch.eye(3).expand(2, 3, 3), 1,
@@ -101,7 +101,7 @@ def test_wrappers_run_plain_on_cpu_without_counting():
     assert vd.shape == (3, 3) and not A6.any() and not vd.any()
     assert (cuda_window.descrip_window.launches,
             cuda_match.reduce_one_way.launches,
-            cuda_orient.orient_terms.launches) == before
+            cuda_orient.orient_terms_levels.launches) == before
 
 
 @pytest.mark.parametrize("cls,kw", [
