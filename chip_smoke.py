@@ -62,10 +62,13 @@ per-bucket details go to standard error as one JSON line.
 
 from __future__ import annotations
 
+import gzip
 import json
 import os
+import re
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -92,6 +95,11 @@ BATCH_CHECK_ROWS = 512     # kernel-1 rows of the batched bucket check
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
 FP32_OPS_PER_S = 67e12     # H100 SXM fp32 outside the tensor cores
 FP64_OPS_PER_S = 34e12     # H100 SXM fp64 outside the tensor cores
+RAW_UNITS = (1.0, 1.0, 1.0)
+RAW_CHECK_ROWS = (3, 4)    # rows of each bucket checked: kernels 3 and 1
+RAW_DESC_BOUND = 0.2       # rawDescriptorTest (Sift3DTest.m:179-201)
+RAW_ANGLE_BOUND = np.pi / 8  # rawOrientationTest (Sift3DTest.m:205-242)
+CSV_FIELD = re.compile(r"-?\d+\.\d{6}")
 
 
 def log(*a):
@@ -438,9 +446,11 @@ def count_buckets(kp, ext) -> tuple[int, int]:
     return n_orient, n_desc
 
 
-def kernel_alone_ms(fn, name: str, reps: int) -> float:
-    """Device time of the kernels whose name holds ``name``, per call of
-    ``fn``, from the profiler's trace of ``reps`` calls."""
+def kernel_alone_ms(fn, name, reps: int) -> float:
+    """Device time of the kernels whose name holds ``name`` (or one of a
+    tuple of names), per call of ``fn``, from the profiler's trace of
+    ``reps`` calls."""
+    names = (name,) if isinstance(name, str) else tuple(name)
     import tempfile
     fn()
     torch.cuda.synchronize()
@@ -456,7 +466,8 @@ def kernel_alone_ms(fn, name: str, reps: int) -> float:
         with open(path) as f:
             events = json.load(f)["traceEvents"]
     us = [e["dur"] for e in events if e.get("ph") == "X" and
-          e.get("cat") == "kernel" and name in e.get("name", "")]
+          e.get("cat") == "kernel" and
+          any(n in e.get("name", "") for n in names)]
     assert us, f"no {name} kernel in the profile"
     return sum(us) / 1e3 / reps
 
@@ -468,6 +479,91 @@ def work_sum(fn, args) -> list[float]:
         w = fn(*a)
         tot = list(w) if tot is None else [x + y for x, y in zip(tot, w)]
     return tot
+
+
+def raw_k1_args(smoothed, plan, kp, params, limit=None):
+    """Kernel-1 arguments of every non-empty level bucket of the raw-image
+    path (``features.descriptor.raw_buckets``) on the smoothed image."""
+    from sift3d_tpu_torch.features.descriptor import (level_geometry,
+                                                      raw_buckets)
+    out = []
+    for (o, s), rows, centers in raw_buckets(kp, plan, params):
+        rows, centers = rows[:limit], centers[:limit]
+        sigma, rad, radii, cores = level_geometry(
+            plan.gpyr_level(o, s).scale, RAW_UNITS, smoothed.shape)
+        out.append(((o, s), (smoothed, centers, kp.R[rows], len(rows), radii,
+                             cores, RAW_UNITS, sigma, rad, None)))
+    return out
+
+
+def first_rows(call, limit):
+    """The indices of the first ``limit`` rows of each level of an
+    ``orient_terms_levels`` call, and that call cut to those rows."""
+    rows, args = call
+    keep, cut, r0 = [], [], 0
+    for a in args:
+        n = a[1]
+        m = min(n, limit)
+        keep.append(torch.arange(r0, r0 + m, device=rows.device))
+        cut.append((a[0], m, min(a[2], m), *a[3:]))
+        r0 += n
+    keep = torch.cat(keep)
+    return keep, (rows[keep], cut)
+
+
+def check_csv(path, cols) -> int:
+    """The reference's CSV format (write_Mat_rm): no header, every row
+    ``cols`` comma-separated ``%f`` fields. Returns the row count."""
+    opener = gzip.open if path.endswith(".gz") else open
+    with opener(path, "rt") as f:
+        lines = f.read().splitlines()
+    assert lines, f"{path}: empty"
+    for line in lines:
+        fields = line.split(",")
+        assert len(fields) == cols, f"{path}: {len(fields)} columns"
+        assert all(CSV_FIELD.fullmatch(v) for v in fields), \
+            f"{path}: a field is not %f: {line[:80]}"
+    return len(lines)
+
+
+def run_cli(module, argv, dev) -> tuple[int, dict]:
+    """``module.main(argv)`` with its file reads and writes timed; returns
+    (exit code, wall / read / write / compute seconds). Everything between
+    the reads and the writes (including the device syncs that copy results
+    to the host) is compute."""
+    spent = {"read": 0.0, "write": 0.0}
+    saved = {}
+
+    def timed(fn, kind):
+        def wrapper(*a, **k):
+            t0 = time.perf_counter()
+            try:
+                return fn(*a, **k)
+            finally:
+                spent[kind] += time.perf_counter() - t0
+        return wrapper
+    for name in dir(module):
+        kind = ("read" if name == "im_read" else
+                "write" if name == "im_write" or name.startswith("write_")
+                else None)
+        if kind:
+            saved[name] = getattr(module, name)
+            setattr(module, name, timed(saved[name], kind))
+    try:
+        t0 = time.perf_counter()
+        rc = module.main(argv)
+        torch.cuda.synchronize(dev)
+        wall = time.perf_counter() - t0
+    finally:
+        for name, fn in saved.items():
+            setattr(module, name, fn)
+    spent.update(wall=wall, compute=wall - spent["read"] - spent["write"])
+    return rc, spent
+
+
+def angle_median(R1, R2) -> float:
+    tr = torch.einsum("kij,kij->k", R1.double(), R2.double())
+    return float(torch.median(torch.arccos(((tr - 1) / 2).clamp(-1, 1))))
 
 
 def main() -> int:
@@ -786,15 +882,217 @@ def main() -> int:
     print(f"stages ms (config-4 batch, one profiled call, host span / device "
           f"busy): {stage_line(bprof)} [{card}]")
 
+    # 7. The user surface on the default device (the card): the raw-image
+    # paths, the resampled registration, the CLIs and the warp.
+    from sift3d_tpu_torch import api
+    from sift3d_tpu_torch.cli import kp as cli_kp
+    from sift3d_tpu_torch.cli import reg as cli_reg
+    from sift3d_tpu_torch.features.dense import smooth_scale_raw_input
+    from sift3d_tpu_torch.features.descriptor import level_buckets
+    from sift3d_tpu_torch.features.orientation import raw_keypoint_levels
+    from sift3d_tpu_torch.io import Volume, im_read, im_write
+    from sift3d_tpu_torch.io.csv import read_mat
+    from sift3d_tpu_torch.ops.interp import im_inv_transform
+
+    def counts():
+        return (cuda_window.descrip_window.launches,
+                cuda_orient.orient_terms_levels.launches)
+
+    def zero_counts():
+        cuda_window.descrip_window.launches = 0
+        cuda_orient.orient_terms_levels.launches = 0
+
+    def n_buckets(kp):
+        return sum(1 for _ in level_buckets(kp, plan))
+
+    # 7a. Raw-image paths on the SIZE^3 volume with its detection's rows.
+    zero_counts()
+    R_raw, conf_raw = api.assign_orientations(src, kp_src, RAW_UNITS, params)
+    torch.cuda.synchronize()
+    raw_orient_counts = counts()
+    assert raw_orient_counts == (0, 1), raw_orient_counts
+    raw_sift = api.Sift3D(params)
+    zero_counts()
+    d_raw = raw_sift.extract_raw(src, kp_src, RAW_UNITS)
+    torch.cuda.synchronize()
+    raw_desc_counts = counts()
+    assert raw_desc_counts == (n_buckets(kp_src), 0), raw_desc_counts
+    smoothed = smooth_scale_raw_input(torch.as_tensor(src).to(dev),
+                                      RAW_UNITS, params)
+    levels, _ = raw_keypoint_levels(smoothed, kp_src, plan, RAW_UNITS)
+    raw_call = levels_args(levels)
+    A_k, vd_k = cuda_orient.orient_terms_levels(*raw_call)
+    keep, cut = first_rows(raw_call, RAW_CHECK_ROWS[0])
+    want = cuda_orient.orient_terms_levels_plain(*cut)
+    torch.cuda.synchronize()
+    rel3, abs3, near3 = compare_terms((A_k[keep], vd_k[keep]), want,
+                                      params.corner_thresh, f"raw {SIZE}^3")
+    ext = [cuda_orient.table_extents(a[3], a[4]) for a in raw_call[1]]
+    print(f"orient_window raw {SIZE}^3 vs plain: first {RAW_CHECK_ROWS[0]} rows "
+          f"of each of {len(levels)} buckets ({int(keep.numel())} rows), max "
+          f"rel dev {rel3:.3e} (tolerance {ORIENT_RTOL}), max abs dev "
+          f"{abs3:.3e}; keypoint sets equal except {near3} near-threshold "
+          f"rows; table extents up to {max(max(e) for e in ext)}")
+    k1_raw_check = raw_k1_args(smoothed, plan, kp_src, params,
+                               RAW_CHECK_ROWS[1])
+    worst1_raw = check_descrip_window(k1_raw_check, f"raw {SIZE}^3")
+    n = kp_src.count
+    raw_pyr = (d_raw.vec[:n] - d_src.vec[:n]).abs().max().item()
+    acc = torch.as_tensor(conf_raw[:n] >= 0)
+    ang = angle_median(kp_src.R[:n][acc.to(dev)].cpu(),
+                       torch.as_tensor(R_raw[:n])[acc])
+    print(f"raw vs pyramid at {SIZE}^3 (not asserted): max |descriptor dev| "
+          f"{raw_pyr:.4f} (rawDescriptorTest bound {RAW_DESC_BOUND}), median "
+          f"angle between R {ang:.4f} rad over {int(acc.sum())} of {n} "
+          f"accepted (rawOrientationTest bound {RAW_ANGLE_BOUND:.4f})")
+    tables = []
+    for a in raw_call[1]:
+        if not a[1]:
+            continue
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        tab = cuda_orient.offset_table(a[0].shape[-3:], *a[3:], dev)
+        end.record()
+        torch.cuda.synchronize()
+        tables.append(dict(extents=cuda_orient.table_extents(a[3], a[4]),
+                           entries=int(tab.shape[0]),
+                           bytes=tab.numel() * tab.element_size(),
+                           build_ms=start.elapsed_time(end)))
+        del tab
+    print(f"orient_window raw {SIZE}^3 tables: {len(tables)} levels, "
+          f"{sum(t['bytes'] for t in tables)} bytes, largest "
+          f"{max(t['entries'] for t in tables)} entries, built in "
+          f"{sum(t['build_ms'] for t in tables):.2f} ms by events [{card}]")
+    detail["raw"] = dict(
+        orient_counts=raw_orient_counts, desc_counts=raw_desc_counts,
+        orient_check=dict(rows=int(keep.numel()), max_rel_err=rel3,
+                          max_abs_err=abs3, near_threshold_rows=near3),
+        desc_check=worst1_raw, raw_vs_pyramid_desc=raw_pyr,
+        raw_vs_pyramid_angle=ang, tables=tables)
+
+    # 7b. Resampled registration (regAnisoTest at size).
+    aniso = np.ascontiguousarray(src[::2])
+    zero_counts()
+    t0 = time.perf_counter()
+    res = api.RegSift3D().register(Volume(src, (1.0, 1.0, 1.0)),
+                                   Volume(aniso, (1.0, 1.0, 2.0)),
+                                   resample=True)
+    torch.cuda.synchronize()
+    resample_s = time.perf_counter() - t0
+    resample_counts = counts()
+    lin = np.abs(res.A[:, :3] - np.diag([1.0, 1.0, 2.0])).max()
+    trans = np.abs(res.A[:, 3]).max()
+    print(f"register resample {SIZE}^3 / [::2] (units 1, 1, 2): ok={res.ok}, "
+          f"matches {len(res.match_src)}, inliers {res.num_inliers}, |A - "
+          f"diag(1, 1, 2)| {lin:.4f}, |t| {trans:.3f}, launches descrip_window "
+          f"{resample_counts[0]} orient_window {resample_counts[1]}, "
+          f"{resample_s:.3f} s, A={np.round(res.A, 4).tolist()}")
+    assert res.ok and lin < 5e-2 and trans < 5.0, "resample outside contract"
+    assert resample_counts[1] == 2 and resample_counts[0] > 0
+    detail["resample"] = dict(A=res.A.tolist(), s=resample_s,
+                              counts=resample_counts)
+
+    # 7c. The CLIs on the card, on the SIZE^3 pair written as NIfTI.
+    build = os.path.join(ROOT, "build")
+    os.makedirs(build, exist_ok=True)
+    cli_runs = {}
+    with tempfile.TemporaryDirectory(dir=build) as tmp:
+        def f(name):
+            return os.path.join(tmp, name)
+        im_write(f("src.nii"), Volume(src))
+        im_write(f("ref.nii"), Volume(ref))
+        zero_counts()
+        rc, t_kp = run_cli(cli_kp, ["--keys", f("keys.csv"), "--desc",
+                                    f("desc.csv"), "--draw", f("draw.nii"),
+                                    f("src.nii")], dev)
+        kp_counts = counts()
+        assert rc == 0, rc
+        nk = check_csv(f("keys.csv"), 14)
+        assert check_csv(f("desc.csv"), 771) == nk == kp_src.count
+        assert im_read(f("draw.nii")).data.shape == src.shape
+        assert kp_counts == (n_buckets(kp_src), 1), kp_counts
+        zero_counts()
+        rc, t_reg = run_cli(cli_reg, [
+            "--matches", f("m.csv"), "--transform", f("t.csv"), "--warped",
+            f("w.nii"), "--concat", f("c.nii"), "--keys", f("k.nii"),
+            "--lines", f("l.nii"), f("src.nii"), f("ref.nii")], dev)
+        reg_counts = counts()
+        assert rc == 0, rc
+        nm = check_csv(f("m.csv"), 6)
+        assert check_csv(f("t.csv"), 4) == 3
+        A_cli = read_mat(f("t.csv"))
+        assert pair_ok(A_cli), f"CLI transform outside the contract: {A_cli}"
+        assert im_read(f("w.nii")).data.shape == ref.shape
+        assert reg_counts == (n_buckets(kp_src) + n_buckets(kp_ref), 2), \
+            reg_counts
+    for name, t, c in (("kpSift3D", t_kp, kp_counts),
+                       ("regSift3D", t_reg, reg_counts)):
+        print(f"{name} on the {SIZE}^3 {'image' if c[1] == 1 else 'pair'}: wall "
+              f"{t['wall']:.3f} s = read {t['read']:.3f} + compute "
+              f"{t['compute']:.3f} + write {t['write']:.3f}; launches "
+              f"descrip_window {c[0]} orient_window {c[1]} [{card}]")
+    print(f"regSift3D CLI: {nm} matches, A={np.round(A_cli, 4).tolist()}")
+    cli_runs = dict(kp=dict(t_kp, counts=kp_counts, keys=nk),
+                    reg=dict(t_reg, counts=reg_counts, matches=nm,
+                             A=A_cli.tolist()))
+    detail["cli"] = cli_runs
+
+    # 7d. Warp and raw-call times.
+    A_main = np.asarray(runs["default"]["A"])
+    src_d = torch.as_tensor(src).to(dev)
+    warp_ms = {}
+    for interp in ("linear", "lanczos2"):
+        warp_ms[interp] = dict(
+            api_ms=min(cuda_ms(lambda: api.warp(src, A_main, interp=interp),
+                               1) for _ in range(3)),
+            device_ms=min(cuda_ms(lambda: im_inv_transform(
+                A_main, src_d, None, interp), 1) for _ in range(3)))
+        print(f"warp {SIZE}^3 {interp}: {warp_ms[interp]['api_ms']:.3f} ms "
+              f"(api.warp, numpy in and out), "
+              f"{warp_ms[interp]['device_ms']:.3f} ms (im_inv_transform on "
+              f"the card), min of 3 by events [{card}]")
+    detail["warp_ms"] = warp_ms
+    k3_raw = k3_times([raw_call], 3)
+    k3_raw["rows_entries_max"] = max(t["entries"] for t in tables)
+    k1_raw_args = raw_k1_args(smoothed, plan, kp_src, params)
+    k1_raw = k1_times(k1_raw_args, 3)
+    k1_raw["alone_ms"] = kernel_alone_ms(
+        lambda: [descrip_window(*a) for _, a in k1_raw_args],
+        ("descrip_window_kernel", "tile_range_kernel", "merge_slabs_kernel"),
+        3)
+    detail["raw"].update(orient_times=k3_raw, desc_times=k1_raw)
+    print(f"orient_window raw {SIZE}^3 ({k3_raw['launches']} launch, "
+          f"{k3_raw['levels']} levels, {k3_raw['rows']} rows, "
+          f"{k3_raw['active_voxels']} voxels counted, largest table "
+          f"{k3_raw['rows_entries_max']} entries): {k3_raw['ms']:.3f} ms by "
+          f"events (tables included), kernel alone {k3_raw['alone_ms']:.3f} "
+          f"ms, plain {k3_raw['plain_ms']:.1f} ms, bound "
+          f"{k3_raw['bound_ms']:.5f} ms ({k3_raw['bound_by']}) [{card}]")
+    print(f"descrip_window raw {SIZE}^3 ({k1_raw['launches']} launches, "
+          f"{k1_raw['rows']} rows, {min(k1_raw['blocks_per_launch'])}-"
+          f"{max(k1_raw['blocks_per_launch'])} blocks a launch): "
+          f"{k1_raw['ms']:.3f} ms by events, kernel alone "
+          f"{k1_raw['alone_ms']:.3f} ms, plain {k1_raw['plain_ms']:.1f} ms, "
+          f"bound {k1_raw['bound_ms']:.4f} ms ({k1_raw['bound_by']}) [{card}]")
+
     log("detail: " + json.dumps(detail))
 
     by_path = {
         "descrip_window": dict(register_256=runs["default"]["counts"][0],
-                               batch_config4=batch_counts[0]),
+                               batch_config4=batch_counts[0],
+                               extract_raw_256=raw_desc_counts[0],
+                               register_resample_256=resample_counts[0],
+                               cli_kp_256=kp_counts[0],
+                               cli_reg_256=reg_counts[0]),
         "match_stream": dict(register_256_streamed=runs["streamed"]["counts"][1],
                              batch_config4=batch_counts[1]),
         "orient_window": dict(register_256=runs["default"]["counts"][2],
-                              batch_config4=batch_counts[2]),
+                              batch_config4=batch_counts[2],
+                              assign_orientations_256=raw_orient_counts[1],
+                              register_resample_256=resample_counts[1],
+                              cli_kp_256=kp_counts[1],
+                              cli_reg_256=reg_counts[1]),
     }
     per_reg = "all launches of one 256^3 registration"
     k3_checks = (k3_check, k3_levels_check, k3_batch_check,
@@ -808,6 +1106,9 @@ def main() -> int:
              bound_ms=k1_256["bound_ms"], bound_by=k1_256["bound_by"],
              library_ms=None, ms_for=per_reg,
              launches_by_path=by_path["descrip_window"],
+             raw_ms=k1_raw["ms"], raw_alone_ms=k1_raw["alone_ms"],
+             raw_plain_ms=k1_raw["plain_ms"], raw_bound_ms=k1_raw["bound_ms"],
+             raw_bound_by=k1_raw["bound_by"], raw_max_abs_err=worst1_raw,
              batch_ms=k1_batch["ms"], batch_plain_ms=k1_batch["plain_ms"],
              batch_bound_ms=k1_batch["bound_ms"],
              batch_bound_by=k1_batch["bound_by"],
@@ -845,6 +1146,11 @@ def main() -> int:
              bound_ms=k3_256["bound_ms"], bound_by=k3_256["bound_by"],
              library_ms=None, ms_for=per_reg,
              launches_by_path=by_path["orient_window"],
+             raw_ms=k3_raw["ms"], raw_alone_ms=k3_raw["alone_ms"],
+             raw_plain_ms=k3_raw["plain_ms"], raw_bound_ms=k3_raw["bound_ms"],
+             raw_bound_by=k3_raw["bound_by"], raw_max_rel_err=rel3,
+             raw_table_bytes=sum(t["bytes"] for t in tables),
+             raw_table_build_ms=sum(t["build_ms"] for t in tables),
              batch_ms=k3_batch["ms"], batch_plain_ms=k3_batch["plain_ms"],
              batch_bound_ms=k3_batch["bound_ms"],
              batch_bound_by=k3_batch["bound_by"],

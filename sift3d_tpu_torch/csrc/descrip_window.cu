@@ -59,9 +59,18 @@
 //     the integer sums fold into a float histogram. Each contribution is
 //     rounded to a step of 2^-21 to 2^-22 of the largest gradient the
 //     slab could hold, so the error follows the window's own contrast,
-//     not the level's; the integer sums are exact and order-free. This is
-//     the one place the kernel leaves fp32 (the card test of a dark window
-//     inside a bright level holds it to the descriptor tolerance). The
+//     not the level's; the integer sums are exact and order-free. A voxel
+//     whose rotated gradient is under 2^8 steps adds its contributions
+//     instead to a fine histogram (one per pair of warps) at a step 2^13
+//     times finer: where a slab holds a bright structure and many dark
+//     voxels (a whole-volume window of the raw-image path), the dark
+//     voxels' contributions would otherwise round to nothing, and the bins
+//     they alone fill lost 4% of their mass (card test at 128^3 and 256^3,
+//     contrast 10^4). The choice is made once a voxel: a test for each
+//     contribution cost a fifth more kernel time in the config-4 batch,
+//     and with one fine histogram a block a third. This is
+//     the one place the kernel leaves fp32 (the card tests of a dark
+//     window inside a bright level hold it to the descriptor tolerance). The
 //     range comes from a first pass that takes the min and max of each
 //     8^3 tile of the level (the level read once); a block reduces the
 //     few tiles that cover its slab. (Each block scanning its own slab
@@ -94,6 +103,11 @@ constexpr int kWarps = kThreads / 32;
 constexpr int kPass = 2048;   // candidate voxels between fixed-point folds
 constexpr int kTile = 8;      // edge of the tiles of the range pass
 constexpr float kRound = 12582912.0f;     // 1.5 * 2^23
+// A voxel whose rotated gradient is below kFineBelow steps of the block's
+// scale adds its contributions to a fine fixed-point histogram (one per
+// pair of warps), kFineGain times finer: kFineBelow * kFineGain = 2^21.
+constexpr float kFineBelow = 256.0f;      // 2^8
+constexpr float kFineGain = 8192.0f;      // 2^13
 constexpr float kBinEps = 1e-3f;          // bin-cube margin of a line's span
 constexpr float kFlat = 1e-6f;            // |d k / d x| below which a line
                                           // runs parallel to a cube face
@@ -241,12 +255,13 @@ __device__ __forceinline__ int best_face(const Normals& c, float gx,
 }
 
 // Gradient, face, barycentric and hat weights of one voxel that passed
-// the geometry tests, added into histogram h.
+// the geometry tests, added into histogram h at `scale`, or into `fine`
+// at `fine_scale` when its gradient is under kFineBelow steps.
 __device__ __forceinline__ void accumulate(
     const Params& p, const Frame& f, const float* __restrict__ lv,
     size_t c, size_t lplane, int nx, float sq, const float* vb,
-    float scale, const Normals& nrm, const float* s_vinv,
-    const int* s_vert, int* h) {
+    float scale, float fine_scale, const Normals& nrm, const float* s_vinv,
+    const int* s_vert, int* h, int* fine) {
   const float w = expf(-0.5f * sq / p.sig2);
   const float gx = 0.5f * (lv[c + 1] - lv[c - 1]) * p.inv_ux * w;
   const float gy = 0.5f * (lv[c + nx] - lv[c - nx]) * p.inv_uy * w;
@@ -264,9 +279,16 @@ __device__ __forceinline__ void accumulate(
   const float b2 = m[6] * grx + m[7] * gry + m[8] * grz;
   const float bsum = b0 + b1 + b2;
   if (!(bsum > 0.0f)) return;
-  const float ib = sqrtf(mag2) / bsum;
+  const float mag = sqrtf(mag2);
+  const float ib = mag / bsum;
   const float val[3] = {b0 * ib, b1 * ib, b2 * ib};
   const int* vert = s_vert + 3 * face;
+
+  // Every contribution is at most |g| (bary and hat weights <= 1): a voxel
+  // under kFineBelow steps goes whole to the fine histogram.
+  const bool small = mag * scale < kFineBelow;
+  const float s = small ? fine_scale : scale;
+  int* const hh = small ? fine : h;
 
   int lz, ly, lx;
   float wz[2], wy[2], wx[2];
@@ -286,14 +308,14 @@ __device__ __forceinline__ void accumulate(
       for (int d = 0; d < 2; ++d) {
         const int hx = lx + d;
         if (hx >= 4) continue;
-        const float sw = wzy * wx[d] * scale;
+        const float sw = wzy * wx[d] * s;
         const int cell = ((hz * 4 + hy) * 4 + hx) * 12;
 #pragma unroll
         for (int t = 0; t < 3; ++t) {
           // round(sw * val) as an int: adding 1.5 * 2^23 leaves the
           // rounded integer in the low mantissa bits (|sw * val| < 2^22).
           const float q = __fmaf_rn(sw, val[t], kRound);
-          atomicAdd(h + cell + vert[t],
+          atomicAdd(hh + cell + vert[t],
                     __float_as_int(q) - __float_as_int(kRound));
         }
       }
@@ -342,6 +364,7 @@ __global__ void __launch_bounds__(kThreads) descrip_window_kernel(
     const float* __restrict__ tables, const int* __restrict__ face_idx,
     const float2* __restrict__ range, float* __restrict__ out) {
   __shared__ int ihist[kWarps * kHist];   // this pass's fixed-point sums
+  __shared__ int fine[kWarps / 2 * kHist];  // its small voxels' sums
   __shared__ float hist[kHist];
   __shared__ float s_vinv[kFaces * 9];
   __shared__ int s_vert[kFaces * 3];
@@ -355,6 +378,7 @@ __global__ void __launch_bounds__(kThreads) descrip_window_kernel(
   const int tid = threadIdx.x;
   const int lane = tid & 31, warp = tid >> 5;
   for (int i = tid; i < kWarps * kHist; i += kThreads) ihist[i] = 0;
+  for (int i = tid; i < kWarps / 2 * kHist; i += kThreads) fine[i] = 0;
   for (int i = tid; i < kHist; i += kThreads) hist[i] = 0.0f;
   for (int i = tid; i < kFaces * 3; i += kThreads) {
     s_vert[i] = face_idx[i];
@@ -373,6 +397,7 @@ __global__ void __launch_bounds__(kThreads) descrip_window_kernel(
   const int volume = vol ? vol[k] : 0;
   const float* lv = level + static_cast<size_t>(volume) * nz * lplane;
   int* h = ihist + warp * kHist;
+  int* fh = fine + (warp >> 1) * kHist;
   const int z_lo = blockIdx.y * planes;
   const int nplanes = min(planes, cz - z_lo);
 
@@ -425,6 +450,12 @@ __global__ void __launch_bounds__(kThreads) descrip_window_kernel(
   const float scale =
       isfinite(bound) ? ldexpf(1.0f, min(30 - e2, 126)) : 1.0f;
   const float inv_scale = 1.0f / scale;
+  // A fine histogram takes at most 2 * kPass / kWarps contributions a bin
+  // a pass, each below kFineBelow * kFineGain = 2^21 once scaled (times
+  // 1.01): below 2^31.
+  const float fine_scale =
+      isfinite(bound) ? ldexpf(kFineGain, min(30 - e2, 126 - 13)) : 1.0f;
+  const float inv_fine = 1.0f / fine_scale;
 
   // The slab's core lines, kThreads at a time. Each thread cuts one line
   // to its span (line_span); a block-wide prefix sum of the span lengths
@@ -490,18 +521,25 @@ __global__ void __launch_bounds__(kThreads) descrip_window_kernel(
         float sq, vb[3];
         if (!voxel_frame(p, f, x, y, z, &sq, vb)) continue;
         accumulate(p, f, lv, (static_cast<size_t>(z) * ny + y) * nx + x,
-                   lplane, nx, sq, vb, scale, nrm, s_vinv, s_vert, h);
+                   lplane, nx, sq, vb, scale, fine_scale, nrm, s_vinv, s_vert,
+                   h, fh);
       }
       __syncthreads();
       // Fold the pass's fixed-point sums into the float histogram.
       for (int i = tid; i < kHist; i += kThreads) {
-        long long sum = 0;
+        long long sum = 0, fsum = 0;
 #pragma unroll
         for (int w = 0; w < kWarps; ++w) {
           sum += ihist[w * kHist + i];
           ihist[w * kHist + i] = 0;
         }
-        hist[i] += static_cast<float>(sum) * inv_scale;
+#pragma unroll
+        for (int w = 0; w < kWarps / 2; ++w) {
+          fsum += fine[w * kHist + i];
+          fine[w * kHist + i] = 0;
+        }
+        hist[i] += static_cast<float>(sum) * inv_scale +
+                   static_cast<float>(fsum) * inv_fine;
       }
       __syncthreads();
     }

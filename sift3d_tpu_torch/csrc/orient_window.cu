@@ -69,7 +69,8 @@ constexpr int kMaxLevels = 32;
 // namespace scope, since the C entry point takes an array of it.
 struct Sift3dOrientLevel {
   const float* level;   // (B, nz, ny, nx)
-  const int4* table;    // {level offset, packed d, w as f64 (lo, hi)}
+  const int4* table;    // {level offset, packed d (10 bits an axis,
+                        // biased by 512), w as f64 (lo, hi)}
   int nz, ny, nx;
   int cz, cy, cx;       // clamped core extents
   int rz, ry, rx;       // window half-extents
@@ -154,9 +155,9 @@ __device__ __forceinline__ void walk(const Row& r, const int4* table,
   } else {
     for (; e < entries; e += step) {
       const int4 q = __ldg(table + e);
-      const int dz = ((q.y >> 16) & 0xff) - 128;
-      const int dy = ((q.y >> 8) & 0xff) - 128;
-      const int dx = (q.y & 0xff) - 128;
+      const int dz = ((q.y >> 20) & 0x3ff) - 512;
+      const int dy = ((q.y >> 10) & 0x3ff) - 512;
+      const int dx = (q.y & 0x3ff) - 512;
       if (within(dz, r.lz, r.hz) && within(dy, r.ly, r.hy) &&
           within(dx, r.lx, r.hx))
         accumulate(r, q, s);

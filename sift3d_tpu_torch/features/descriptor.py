@@ -17,6 +17,8 @@ caller _SIFT3D_extract_descriptors (sift.c:2207-2243), as
 Keypoints are bucketed by pyramid level: every keypoint of a level shares
 its window geometry, and one kernel launch covers a bucket, across all the
 volumes of a batch when the rows carry their volume index.
+``extract_raw_descriptors`` runs the same buckets on one smoothed raw
+image, with windows measured in base-octave voxels.
 """
 
 from __future__ import annotations
@@ -30,7 +32,8 @@ import torch
 from ..config import DESC_NUMEL, DESC_RAD_FCTR, DESC_SIG_FCTR, TRUNC_THRESH
 from ..dtypes import F64
 from ..ops.cuda_window import descrip_window
-from .detect import kp_levels
+from .dense import smooth_scale_raw_input
+from .detect import kp_levels, level_cap
 from .keypoints import Keypoints, valid_rows
 from .windows import window_extent
 
@@ -54,6 +57,16 @@ class Descriptors:
 
     def valid_mask(self) -> torch.Tensor:
         return valid_rows(self.capacity, self.count, self.vec.device)
+
+    def to_numpy(self) -> np.ndarray:
+        """Rows [x y z el0..el767] float32, trimmed to count: the
+        reference CSV format (SIFT3D_Descriptor_store_to_Mat_rm,
+        sift.c:2664-2717)."""
+        n = self.count
+        out = np.zeros((n, 3 + DESC_NUMEL), np.float32)
+        out[:, :3] = self.xyz[:n].cpu().numpy()
+        out[:, 3:] = self.vec[:n].cpu().numpy()
+        return out
 
 
 def postprocess(raw: torch.Tensor) -> torch.Tensor:
@@ -132,6 +145,41 @@ def extract_descriptors(gpyr: dict, kp: Keypoints, plan,
                                   plan.gpyr_level(o, s).scale,
                                   plan.octave_units(o),
                                   vol=None if vol is None else vol[rows])
+    factor = torch.exp2(kp.o.to(F64))
+    xyz = torch.stack([kp.x * factor, kp.y * factor, kp.z * factor], -1)
+    return Descriptors(xyz=xyz, sd=kp.sd, vec=vec, count=kp.count)
+
+
+def raw_buckets(kp: Keypoints, plan, params):
+    """Yield ((o, s), rows, centers) for every non-empty level bucket of
+    the raw-image path: the bucket's first ``level_cap`` rows and their
+    centres in base-octave voxels, zyx * 2^o (float32)."""
+    for (o, s), rows in level_buckets(kp, plan):
+        rows = rows[:level_cap(plan, o, params)]
+        centers = torch.stack([kp.z[rows], kp.y[rows], kp.x[rows]], -1).float()
+        yield (o, s), rows, centers * float(np.float32(2.0 ** o))
+
+
+def extract_raw_descriptors(vol: torch.Tensor, kp: Keypoints, units, plan,
+                            params) -> Descriptors:
+    """Descriptors from a raw (nz, ny, nx) image instead of a stored
+    pyramid (SIFT3D_extract_raw_descriptors, reference sift.c:2131-2195).
+
+    The image is smoothed from sigma_n to sigma0 and scaled to [-1, 1]
+    (smooth_scale_raw_input, sift.c:1978-2006); keypoints go to the base
+    octave by scaling their coordinates by 2^o with sd unchanged
+    (keypoint2base / scale_Keypoint, sift.c:2094-2115, 1952-1967), so each
+    (o, s) bucket keeps its own window size, now in base-octave voxels on
+    the single smoothed image: one kernel launch per non-empty bucket. A
+    bucket keeps its first ``level_cap`` rows, like the JAX package; the
+    rest get zero descriptors.
+    """
+    smoothed = smooth_scale_raw_input(vol, units, params)
+    vec = torch.zeros((kp.capacity, DESC_NUMEL), dtype=torch.float32,
+                      device=smoothed.device)
+    for (o, s), rows, centers in raw_buckets(kp, plan, params):
+        vec[rows] = extract_level(smoothed, centers, kp.R[rows],
+                                  plan.gpyr_level(o, s).scale, units)
     factor = torch.exp2(kp.o.to(F64))
     xyz = torch.stack([kp.x * factor, kp.y * factor, kp.z * factor], -1)
     return Descriptors(xyz=xyz, sd=kp.sd, vec=vec, count=kp.count)

@@ -38,6 +38,11 @@ class Keypoints:
     def valid_mask(self) -> torch.Tensor:
         return valid_rows(self.capacity, self.count, self.x.device)
 
+    def to(self, device) -> "Keypoints":
+        """The same set with its tensors on ``device``."""
+        return Keypoints(**{f: getattr(self, f).to(device) for f in FIELDS},
+                         count=self.count)
+
     def to_numpy(self) -> np.ndarray:
         """Rows [x y z o sd R00..R22] (14 cols), trimmed to count."""
         n = self.count

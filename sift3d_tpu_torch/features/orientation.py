@@ -21,6 +21,8 @@ from ``ops/cuda_orient``: the CUDA kernel on the card, its plain PyTorch
 version on the CPU, for the rows of one volume or of a batch, one level
 (``orient_terms``) or every level of a detection at once
 (``orient_terms_levels``, whose arguments ``levels_args`` builds).
+``assign_orientations_raw`` takes the keypoints of every level bucket to
+one smoothed raw image and sends them through the same single launch.
 """
 
 from __future__ import annotations
@@ -34,6 +36,7 @@ from ..config import MAX_EIG_RATIO, ORI_GRAD_THRESH, ORI_RAD_FCTR, ORI_SIG_FCTR
 from ..dtypes import F64
 from ..ops.cuda_orient import orient_terms, orient_terms_levels
 from ..ops.eig import eigh3x3
+from .dense import smooth_scale_raw_input
 from .windows import window_extent
 
 
@@ -112,6 +115,55 @@ def assign_orientations_level(level: torch.Tensor, zyx: torch.Tensor,
     return orientations_from_tensor(A6, vd, corner_thresh)
 
 
+def assign_orientations_raw(vol: torch.Tensor, kp, units, plan, params):
+    """Orientations from a raw (nz, ny, nx) image and a keypoint list
+    (SIFT3D_assign_orientations, reference sift.c:1534-1607).
+
+    The image is smoothed sigma_n -> sigma0 and scaled; each keypoint goes
+    to the base octave (voxel floor(zyx * 2^o), sd unchanged) and its
+    structure tensor is taken on the single smoothed image with its level
+    bucket's sd in the base units. Every bucket is one entry of one
+    ``orient_terms_levels`` call (one kernel launch on the card), all
+    sharing the smoothed image. Rejected rows, and rows on no keypoint
+    level, keep R = I with confidence -1, like the reference.
+
+    Returns (R (K, 3, 3) float32, conf (K,) float32 corner scores).
+    """
+    smoothed = smooth_scale_raw_input(vol, units, params)
+    dev = smoothed.device
+    K = kp.capacity
+    R_out = torch.eye(3, dtype=torch.float32, device=dev).repeat(K, 1, 1)
+    conf_out = torch.full((K,), -1.0, dtype=torch.float32, device=dev)
+    levels, idx = raw_keypoint_levels(smoothed, kp, plan, units)
+    if not levels:
+        return R_out, conf_out
+    rows, args = levels_args(levels)
+    A6, vd = orient_terms_levels(rows, args)
+    R, valid, conf = orientations_from_tensor(A6, vd, params.corner_thresh,
+                                              return_conf=True)
+    R_out[idx] = torch.where(valid[:, None, None], R, R_out[idx])
+    conf_out[idx] = torch.where(valid, conf, -1.0)
+    return R_out, conf_out
+
+
+def raw_keypoint_levels(smoothed: torch.Tensor, kp, plan, units):
+    """``assign_orientations_levels``' levels of the raw-image path: per
+    non-empty (o, s) bucket of ``kp``, (the smoothed image, rows (n, 4)
+    (0, floor(zyx * 2^o)), the bucket's sd, the base units), and the
+    keypoint index of every row, concatenated."""
+    from .descriptor import level_buckets
+
+    levels, idx = [], []
+    for (o, s), rows in level_buckets(kp, plan):
+        zyx = torch.stack([kp.z[rows], kp.y[rows], kp.x[rows]], -1).float()
+        zyx = torch.floor(zyx * float(np.float32(2.0 ** o))).long()
+        vz = torch.zeros_like(zyx[:, :1])
+        levels.append((smoothed, torch.cat([vz, zyx], 1),
+                       plan.gpyr_level(o, s).scale, tuple(units)))
+        idx.append(rows)
+    return levels, (torch.cat(idx) if idx else None)
+
+
 def orientation_scores(A6: torch.Tensor, vd: torch.Tensor):
     """Eigendecomposition, sign fixing and the quantities the tests read
     (sift.c:1430-1492).
@@ -150,14 +202,17 @@ def orientation_scores(A6: torch.Tensor, vd: torch.Tensor):
 
 
 def orientations_from_tensor(A6: torch.Tensor, vd: torch.Tensor,
-                             corner_thresh: float):
+                             corner_thresh: float, return_conf: bool = False):
     """Orientation and the rejection tests (sift.c:1426-1492): the window
     gradient, |lam[i] / lam[i+1]| > 0.90 (NaN comparisons are false,
     matching the C semantics of fabs(nan) > thresh), and the corner score.
 
-    Returns (R (K, 3, 3) float32, valid (K,) bool).
+    Returns (R (K, 3, 3) float32, valid (K,) bool), and the corner score as
+    float32 with ``return_conf``.
     """
     R, grad_ok, ratio, corner_score = orientation_scores(A6, vd)
     ratio_reject = (ratio > MAX_EIG_RATIO).any(-1)
     valid = grad_ok & ~ratio_reject & (corner_score >= corner_thresh)
+    if return_conf:
+        return R, valid, corner_score.float()
     return R, valid

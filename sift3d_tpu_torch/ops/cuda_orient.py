@@ -23,10 +23,13 @@ gradient w gi. Rows at or past ``count`` are zero.
   level reads volume ``vol[k]``, in place. The TPU version gathers a
   stacked (B*K, wz, wy, wx) copy of the windows first; the kernel does not.
 - The kernel walks, per level, the list of window offsets inside the
-  sphere with their weights (``offset_table``), built once per level
-  geometry with the plain version's own operations and cached, so that
-  masks and weights are the plain version's bit for bit; a row's list is
-  split over ``warps_per_row`` warps.
+  sphere with their weights (``offset_table``), built per level geometry
+  with the plain version's own operations (a z-slab of the offset box at a
+  time), so that masks and weights are the plain version's bit for bit; a
+  row's list is split over ``warps_per_row`` warps. Tables are cached per
+  geometry up to ``TABLE_CACHE_BYTES``, least recently used first out: the
+  raw-image path's windows span up to a whole 256^3 volume, and its tables
+  there reach 51-127 M entries (0.8-1.9 GiB) a level.
 - The float64 sums keep the keypoint rows exact (an fp32 sum can flip the
   0.90 eigenvalue-ratio or the corner test); on the H100 they set the
   function's bound (``orient_work`` counts it), while the kernel's time
@@ -35,6 +38,7 @@ gradient w gi. Rows at or past ``count`` are zero.
 
 from __future__ import annotations
 
+import collections
 import ctypes
 
 import numpy as np
@@ -49,10 +53,14 @@ from ..features.windows import (batch_view, gather_windows, window_gradients,
 _CHUNK_VOXELS = 1 << 22
 # The kernel's limits: levels per launch (its parameter table; more levels
 # take more launches), rows per block (warps of a 256-thread block), table
-# offsets per axis (packed in a byte each).
+# offsets per axis (packed in 10 bits each, ``_pack``).
 MAX_LEVELS = 32
 WARPS = 8
-MAX_EXTENT = 127
+MAX_EXTENT = 511
+# Offset-box candidates per z-slab while a table is built (bounds the
+# build's temporaries), and the bytes of tables kept between calls.
+TABLE_SLAB = 1 << 24
+TABLE_CACHE_BYTES = 1 << 30
 # Table entries a warp should walk at most: a row's list is split over
 # more warps (up to WARPS) until it does.
 ENTRIES_PER_WARP = 512
@@ -162,13 +170,15 @@ def table_extents(radii, cores) -> tuple[int, int, int]:
 
 
 def _pack(dz, dy, dx):
-    return ((dz + 128) << 16) | ((dy + 128) << 8) | (dx + 128)
+    """Offsets |d| <= MAX_EXTENT as one non-negative int32: 10 bits an
+    axis, biased by 512."""
+    return ((dz + 512) << 20) | ((dy + 512) << 10) | (dx + 512)
 
 
 def unpack(packed):
     """(dz, dy, dx) of the table's packed offsets (the kernel's rule)."""
-    return (((packed >> 16) & 0xFF) - 128, ((packed >> 8) & 0xFF) - 128,
-            (packed & 0xFF) - 128)
+    return (((packed >> 20) & 0x3FF) - 512, ((packed >> 10) & 0x3FF) - 512,
+            (packed & 0x3FF) - 512)
 
 
 def offset_table(shape, radii, cores, units, sigma: float, rad: float,
@@ -178,22 +188,37 @@ def offset_table(shape, radii, cores, units, sigma: float, rad: float,
     order: the level offset (dz ny + dy) nx + dx, the packed offset
     (``unpack``) and the weight w as a float64's two 32-bit words. |v|^2,
     the mask and w are formed by the plain version's operations on
-    ``device``, so they are its values bit for bit."""
+    ``device``, so they are its values bit for bit; the box is taken
+    ``TABLE_SLAB`` candidates of whole z-planes at a time. Raises when an
+    extent exceeds MAX_EXTENT or a level offset would not fit in int32."""
     g = _constants(units, sigma, rad)
     ext = table_extents(radii, cores)
     if max(ext) > MAX_EXTENT:
         raise ValueError(f"orient_window: window extents {ext} exceed "
                          f"{MAX_EXTENT}")
-    d = [torch.arange(-e, e + 1, device=device) for e in ext]
-    sq = _sq(d[0][:, None, None], d[1][None, :, None], d[2][None, None, :], g)
-    mask = sq <= g["rad2"]
-    w = _weight(sq, g)[mask].to(F64)
-    dz, dy, dx = (i - e for i, e in zip(torch.nonzero(mask, as_tuple=True),
-                                         ext))
     ny, nx = shape[-2:]
-    off = (dz * ny + dy) * nx + dx
-    return torch.cat([torch.stack([off, _pack(dz, dy, dx)], 1).to(torch.int32),
-                      w.view(torch.int32).reshape(-1, 2)], 1).contiguous()
+    if (ext[0] * ny + ext[1]) * nx + ext[2] >= 2 ** 31:
+        raise ValueError(f"orient_window: level offsets of extents {ext} in "
+                         f"a {tuple(shape)} level exceed int32")
+    ez, ey, ex = ext
+    dy = torch.arange(-ey, ey + 1, device=device)[None, :, None]
+    dx = torch.arange(-ex, ex + 1, device=device)[None, None, :]
+    planes = max(1, TABLE_SLAB // ((2 * ey + 1) * (2 * ex + 1)))
+    parts = []
+    for z0 in range(-ez, ez + 1, planes):
+        dz = torch.arange(z0, min(ez + 1, z0 + planes),
+                          device=device)[:, None, None]
+        sq = _sq(dz, dy, dx, g)
+        mask = sq <= g["rad2"]
+        w = _weight(sq, g)[mask].to(F64)
+        iz, iy, ix = torch.nonzero(mask, as_tuple=True)
+        del sq, mask
+        pz, py, px = iz + z0, iy - ey, ix - ex
+        off = (pz * ny + py) * nx + px
+        parts.append(torch.cat(
+            [torch.stack([off, _pack(pz, py, px)], 1).to(torch.int32),
+             w.view(torch.int32).reshape(-1, 2)], 1))
+    return torch.cat(parts).contiguous()
 
 
 def warps_per_row(entries: int) -> int:
@@ -215,7 +240,38 @@ class _Level(ctypes.Structure):
                 [(f, ctypes.c_float) for f in ("inv_ux", "inv_uy", "inv_uz")])
 
 
-_statics: dict = {}
+class _TableCache:
+    """Per-geometry ``_level_static`` entries, least recently used first
+    out once their tables hold more than ``limit`` bytes; a table larger
+    than ``limit`` alone is built for its call and not kept."""
+
+    def __init__(self, limit: int):
+        self.limit = limit
+        self.bytes = 0
+        self.entries: collections.OrderedDict = collections.OrderedDict()
+
+    def get(self, key):
+        st = self.entries.get(key)
+        if st is not None:
+            self.entries.move_to_end(key)
+        return st
+
+    def clear(self) -> None:
+        self.entries.clear()
+        self.bytes = 0
+
+    def put(self, key, st) -> None:
+        size = st[2].numel() * st[2].element_size()
+        if size > self.limit:
+            return
+        self.entries[key] = st
+        self.bytes += size
+        while self.bytes > self.limit:
+            _, old = self.entries.popitem(last=False)
+            self.bytes -= old[2].numel() * old[2].element_size()
+
+
+_statics = _TableCache(TABLE_CACHE_BYTES)
 
 
 def _level_static(shape, radii, cores, units, sigma, rad, device):
@@ -233,7 +289,8 @@ def _level_static(shape, radii, cores, units, sigma, rad, device):
                     *table_extents(radii, cores), tab.shape[0],
                     P.bit_length() - 1, 0, 0, 0, 0, g["inv_ux"], g["inv_uy"],
                     g["inv_uz"])
-        st = _statics[key] = (lv, WARPS // P, tab)
+        st = (lv, WARPS // P, tab)
+        _statics.put(key, st)
     return st
 
 
@@ -290,8 +347,8 @@ def orient_terms_levels(rows, levels):
     A6 = torch.empty((N, 6), dtype=F64, device=dev)
     vd = torch.empty((N, 3), dtype=torch.float32, device=dev)
     rows = rows.to(torch.int32).contiguous()
-    # The levels' contiguous copies, held until their kernels are queued:
-    # the table passes only their addresses.
+    # The levels' contiguous copies and their offset tables, held until
+    # their kernels are queued: the launch passes only their addresses.
     held = []
     for group in level_groups(levels):
         table = (_Level * len(group))()
@@ -299,9 +356,9 @@ def orient_terms_levels(rows, levels):
         for i, j in enumerate(group):
             level, n, count, radii, cores, units, sigma, rad = levels[j]
             level = level.contiguous()
-            held.append(level)
-            lv, per_block, _ = _level_static(level.shape[-3:], radii, cores,
-                                             units, sigma, rad, dev)
+            lv, per_block, tab = _level_static(level.shape[-3:], radii, cores,
+                                               units, sigma, rad, dev)
+            held += [level, tab]
             table[i] = lv
             e = table[i]
             e.level, e.block0 = level.data_ptr(), block0

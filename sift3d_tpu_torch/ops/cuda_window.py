@@ -31,7 +31,10 @@ zero.
   every 2048 candidates. The fixed-point step of a block follows the range
   of the values its slab reads (from a first pass that takes the min and
   max of each 8^3 tile of the level), so a dark window in a bright level
-  is summed as finely as a bright one.
+  is summed as finely as a bright one; a voxel whose gradient is under
+  2^8 steps goes to a histogram (one per pair of warps) 2^13 times finer,
+  so dark voxels that share a slab with a bright structure (whole-volume
+  windows of the raw-image path) are not rounded away.
 - On the H100 the kernel is bound by its fp32 arithmetic per voxel, not by
   device memory (see ``descrip_work`` for the counts); at small buckets by
   the launches' host overhead.

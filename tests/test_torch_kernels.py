@@ -391,3 +391,75 @@ def test_match_kernel_split_ranges(cuda):
     np.testing.assert_array_equal(m_stream.cpu().numpy(),
                                   m_dense.cpu().numpy())
     assert (m_dense >= 0).sum() >= 100
+
+
+@pytest.mark.parametrize("shape,units,sd,wide", [
+    ((40, 40, 300), (0.25, 1.0, 1.0), 8.0, 1),     # x extent 144
+    ((160, 160, 160), (1.0, 1.0, 1.0), 30.0, 3),   # every extent 135
+])
+def test_orient_window_kernel_wide_extents(cuda, shape, units, sd, wide):
+    """Kernel 3 on levels whose offset tables reach past 127 voxels on one
+    axis and on all three (the raw-image path's windows): rows in the
+    middle, at both corners and past count, against the plain version."""
+    rng = np.random.default_rng(11)
+    level = torch.as_tensor(_level(rng, shape)).to(cuda)
+    sigma, rad, radii, cores = level_geometry(sd, units, shape)
+    ext = cuda_orient.table_extents(radii, cores)
+    assert sum(e > 127 for e in ext) == wide, ext
+    zyx = np.stack([rng.integers(1, n - 1, 6) for n in shape], -1)
+    zyx[0] = (1, 1, 1)
+    zyx[1] = tuple(n - 2 for n in shape)
+    zyx[2] = tuple(n // 2 for n in shape)
+    zyx = torch.as_tensor(zyx).to(cuda)
+    args = (5, radii, cores, units, sigma, rad)
+    want = cuda_orient.orient_terms_plain(level, zyx[:5], *args)
+    before = cuda_orient.orient_terms_levels.launches
+    got = cuda_orient.orient_terms(level, zyx, *args)
+    torch.cuda.synchronize()
+    assert cuda_orient.orient_terms_levels.launches == before + 1
+    assert not got[0][5:].any() and not got[1][5:].any()
+    rel = _rel_dev((got[0][:5], got[1][:5]), (want[0].cpu(), want[1].cpu()))
+    print(f"orient wide extents {ext}: max rel dev {rel:.3e}")
+    assert rel <= 1e-5
+
+
+@pytest.mark.parametrize("n", [128, 256])
+def test_descrip_window_kernel_whole_level(cuda, n):
+    """Kernel 1 on rows whose core is a whole n^3 level (the raw-image
+    path's windows at octaves 2-5), one of them on a dark region beside a
+    bright blob: the z-slab split, the tile-range pass and the fixed-point
+    folds against the plain version."""
+    rng = np.random.default_rng(12)
+    shape = (n,) * 3
+    z, y, x = np.meshgrid(*(np.arange(m) for m in shape), indexing="ij")
+    bright = np.exp(-((z - 8) ** 2 + (y - 8) ** 2 + (x - 8) ** 2) / 8.0)
+    vol = _level(rng, shape) + bright / 1e-4
+    level = torch.as_tensor(vol.astype(np.float32)).to(cuda)
+    units = (1.0, 1.0, 1.0)
+    sigma = float(np.float32(n / 16) * np.float32(DESC_SIG_FCTR))
+    rad = float(np.float32(DESC_RAD_FCTR) * np.float32(sigma))
+    radii = tuple(int(math.ceil(rad / u)) for u in units)
+    cores = tuple(window_extent(r, m, False) for r, m in zip(radii, shape))
+    assert cores == (n - 2,) * 3
+    centers = torch.tensor([[n / 2 + 0.3, n / 2 - 0.4, n / 2 + 0.1],
+                            [n - 20.5, n - 30.2, n - 25.7],
+                            [5.0, 5.0, 5.0]], device=cuda)
+    R = torch.as_tensor(np.array([np.linalg.qr(a)[0] for a in
+                                  rng.standard_normal((3, 3, 3))],
+                                 np.float32)).to(cuda)
+    geom = (radii, cores, units, sigma, rad)
+    want = torch.cat([cuda_window.descrip_window_plain(
+        level, centers[k:k + 1], R[k:k + 1], 1, *geom) for k in range(2)])
+    before = cuda_window.descrip_window.launches
+    got = cuda_window.descrip_window(level, centers, R, 2, *geom)
+    torch.cuda.synchronize()
+    assert cuda_window.descrip_window.launches == before + 1
+    assert cuda_window.slab_plan(2, cores[0])[1] > 1
+    assert not got[2].any()
+    got, want = got[:2].cpu(), want.cpu()
+    rel = ((got - want).abs().amax(1) / want.abs().amax(1)).tolist()
+    dev = (postprocess(got) - postprocess(want)).abs().max().item()
+    print(f"descrip whole {n}^3 level: max |dev| of the raw rows over each "
+          f"row's largest bin {rel}, of the descriptors {dev:.3e}")
+    assert dev <= 2e-3
+    assert max(rel) <= 1e-4

@@ -219,6 +219,7 @@ def _walk(tab, shape, zyx, radii, cores):
     ((0.7, 1.0, 2.1), 2.0, (20, 26, 36)),
     ((1.0, 1.0, 1.0), 3.0, (8, 10, 12)),       # cores clamped to n - 2
     ((1.0, 1.3, 0.8), 3.0, (14, 40, 9)),       # some axes clamped
+    ((0.1, 15.0, 15.0), 10 / 3, (6, 6, 320)),  # a 3 x 3 x 301 box
 ])
 def test_offset_walk_visits_exactly_the_mask(units, sd, shape):
     """Every voxel the plain version counts is visited once, with its
@@ -279,3 +280,69 @@ def test_offset_walk_sums_equal_plain():
         assert np.abs(got[:6] - want[:6]).max() <= 1e-12 * scale
         assert np.abs(got[6:] - want[6:]).max() <= 1e-5 * scale
 
+
+
+def test_pack_round_trips_every_offset_up_to_max_extent():
+    e = cuda_orient.MAX_EXTENT
+    assert e > 127
+    d = torch.tensor([-e, -e + 1, -128, -1, 0, 1, 127, 128, 300, e])
+    dz, dy, dx = torch.meshgrid(d, d, d, indexing="ij")
+    packed = cuda_orient._pack(dz, dy, dx)
+    assert packed.min() >= 0 and packed.max() < 2 ** 31
+    for got, want in zip(unpack(packed.to(torch.int32)), (dz, dy, dx)):
+        assert torch.equal(got.long(), want)
+
+
+def test_offset_table_past_127():
+    """A table whose x extent (150) passes a byte: 3 x 3 x 301 offsets,
+    packed and level offsets as the kernel reads them."""
+    units, sd, shape = (0.1, 15.0, 15.0), 10 / 3, (6, 6, 320)
+    sigma, rad, radii, cores = tori.level_geometry(sd, units, shape)
+    ext = table_extents(radii, cores)
+    assert ext == (1, 1, 150)
+    tab = offset_table(shape, radii, cores, units, sigma, rad, "cpu")
+    d = torch.stack(unpack(tab[:, 1]), 1).long()
+    assert d[:, 2].min() == -150 and d[:, 2].max() == 150
+    assert torch.equal((d[:, 0] * 6 + d[:, 1]) * 320 + d[:, 2],
+                       tab[:, 0].long())
+    g = cuda_orient._constants(units, sigma, rad)
+    sq = cuda_orient._sq(d[:, 0], d[:, 1], d[:, 2], g)
+    assert (sq <= g["rad2"]).all()
+    box = torch.stack(torch.meshgrid(*(torch.arange(-e, e + 1) for e in ext),
+                                     indexing="ij"), -1).reshape(-1, 3)
+    inside = cuda_orient._sq(box[:, 0], box[:, 1], box[:, 2], g) <= g["rad2"]
+    assert tab.shape[0] == int(inside.sum())
+
+
+def test_offset_table_slabs_equal_one_pass(monkeypatch):
+    """Building the table a few z-planes at a time gives the same table."""
+    units, sd, shape = (1.0, 1.3, 0.8), 1.6, (30, 32, 28)
+    sigma, rad, radii, cores = tori.level_geometry(sd, units, shape)
+    whole = offset_table(shape, radii, cores, units, sigma, rad, "cpu")
+    monkeypatch.setattr(cuda_orient, "TABLE_SLAB", 50)
+    assert torch.equal(offset_table(shape, radii, cores, units, sigma, rad,
+                                    "cpu"), whole)
+
+
+@pytest.mark.parametrize("radii,cores,shape", [
+    ((600, 3, 3), (600, 5, 5), (610, 7, 7)),            # extent past 511
+    ((500, 500, 500), (990, 990, 4990), (1000, 1000, 5000)),  # past int32
+])
+def test_offset_table_refuses_what_the_kernel_cannot_take(radii, cores,
+                                                          shape):
+    with pytest.raises(ValueError, match="orient_window"):
+        offset_table(shape, radii, cores, (1.0, 1.0, 1.0), 100.0, 300.0,
+                     "cpu")
+
+
+def test_table_cache_evicts_least_recent_by_bytes():
+    cache = cuda_orient._TableCache(limit=3 * 64)
+    tab = [torch.zeros((4, 4), dtype=torch.int32) for _ in range(5)]  # 64 B
+    for k in range(3):
+        cache.put(k, (None, 1, tab[k]))
+    assert cache.get(0) is not None           # 0 is now the most recent
+    cache.put(3, (None, 1, tab[3]))
+    assert cache.get(1) is None and cache.bytes == 3 * 64
+    assert [k for k in cache.entries] == [2, 0, 3]
+    cache.put(4, (None, 1, torch.zeros((8, 8), dtype=torch.int32)))  # 256 B
+    assert cache.get(4) is None and cache.bytes == 3 * 64

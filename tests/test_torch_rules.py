@@ -13,6 +13,8 @@ import pytest
 import torch
 
 from sift3d_tpu_torch import RegSift3D, Sift3D
+from sift3d_tpu_torch.api import (assign_orientations, descriptors_from_rows,
+                                  warp)
 from sift3d_tpu_torch.config import MatchParams, RansacParams, SIFT3DParams
 from sift3d_tpu_torch.convert import params_from_dict
 from sift3d_tpu_torch.dtypes import resolve_device
@@ -30,7 +32,10 @@ def test_import_pulls_in_no_jax():
             "sift3d_tpu_torch.convert, sift3d_tpu_torch.ops.cuda_match, "
             "sift3d_tpu_torch.ops.cuda_window, "
             "sift3d_tpu_torch.ops.cuda_orient, "
-            "sift3d_tpu_torch.parallel.pipeline\n"
+            "sift3d_tpu_torch.parallel.pipeline, sift3d_tpu_torch.io, "
+            "sift3d_tpu_torch.io.dicom, sift3d_tpu_torch.cli.kp, "
+            "sift3d_tpu_torch.cli.reg, sift3d_tpu_torch.ops.interp, "
+            "sift3d_tpu_torch.ops.draw, sift3d_tpu_torch.features.dense\n"
             "bad = [m for m in sys.modules if m == 'jax' or "
             "m.startswith(('jax.', 'jaxlib', 'sift3d_tpu.')) or "
             "m == 'sift3d_tpu']\n"
@@ -67,11 +72,37 @@ def test_entry_points_refuse_cpu_fallback():
         RegSift3D()
     with pytest.raises(RuntimeError, match="CUDA"):
         resolve_device("cuda")
+    vol = np.zeros((16, 16, 16), np.float32)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        warp(vol, np.eye(3, 4))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        assign_orientations(vol, None)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        descriptors_from_rows(np.zeros((1, 771)))
     with pytest.raises(RuntimeError, match="CUDA"):
         tpipe.batch_register_pairs(np.zeros((1, 16, 16, 16)),
                                    np.zeros((1, 16, 16, 16)), None,
                                    SIFT3DParams())
     assert resolve_device("cpu") == torch.device("cpu")
+
+
+@pytest.mark.parametrize("cli,argv", [
+    ("kp", ["--keys", "k.csv", "missing.nii"]),
+    ("reg", ["--transform", "t.csv", "missing.nii", "missing.nii"]),
+])
+def test_cli_refuses_cpu_fallback(cli, argv, tmp_path):
+    """Without a card a CLI's ``main`` raises before it reads anything,
+    unless the caller names a device."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default device is valid")
+    import importlib
+    from sift3d_tpu_torch.io import FileDoesNotExistError
+    main = importlib.import_module(f"sift3d_tpu_torch.cli.{cli}").main
+    argv = [a if a.startswith("--") else str(tmp_path / a) for a in argv]
+    with pytest.raises(RuntimeError, match="CUDA"):
+        main(argv)
+    with pytest.raises(FileDoesNotExistError):
+        main(argv, device="cpu")
 
 
 def test_entry_points_pin_full_fp32():
