@@ -483,16 +483,14 @@ def work_sum(fn, args) -> list[float]:
 
 def raw_k1_args(smoothed, plan, kp, params, limit=None):
     """Kernel-1 arguments of every non-empty level bucket of the raw-image
-    path (``features.descriptor.raw_buckets``) on the smoothed image."""
-    from sift3d_tpu_torch.features.descriptor import (level_geometry,
-                                                      raw_buckets)
+    path (``features.descriptor.raw_desc_args``, what ``extract_raw``
+    launches), cut to the first ``limit`` rows of each."""
+    from sift3d_tpu_torch.features.descriptor import raw_desc_args
     out = []
-    for (o, s), rows, centers in raw_buckets(kp, plan, params):
-        rows, centers = rows[:limit], centers[:limit]
-        sigma, rad, radii, cores = level_geometry(
-            plan.gpyr_level(o, s).scale, RAW_UNITS, smoothed.shape)
-        out.append(((o, s), (smoothed, centers, kp.R[rows], len(rows), radii,
-                             cores, RAW_UNITS, sigma, rad, None)))
+    for lv, _, args in raw_desc_args(smoothed, kp, plan, params, RAW_UNITS):
+        level, centers, R, _, *rest = args
+        out.append((lv, (level, centers[:limit], R[:limit],
+                         len(centers[:limit]), *rest)))
     return out
 
 
@@ -754,8 +752,9 @@ def main() -> int:
                                                   descrip_work, slab_plan)
 
     def k1_times(args, reps):
-        nb, ops, contrib, active, box = work_sum(descrip_work,
-                                                 [a for _, a in args])
+        masks = {}      # launches on one tensor read its union once
+        nb, ops, contrib, active, box = work_sum(
+            lambda *a: descrip_work(*a, masks=masks), [a for _, a in args])
         b, by = bound_ms(nb, ops)
         return dict(
             launches=len(args), rows=sum(a[3] for _, a in args),

@@ -150,14 +150,21 @@ def extract_descriptors(gpyr: dict, kp: Keypoints, plan,
     return Descriptors(xyz=xyz, sd=kp.sd, vec=vec, count=kp.count)
 
 
-def raw_buckets(kp: Keypoints, plan, params):
-    """Yield ((o, s), rows, centers) for every non-empty level bucket of
-    the raw-image path: the bucket's first ``level_cap`` rows and their
-    centres in base-octave voxels, zyx * 2^o (float32)."""
+def raw_desc_args(smoothed: torch.Tensor, kp: Keypoints, plan, params,
+                  units):
+    """Yield ((o, s), rows, args) for every non-empty level bucket of the
+    raw-image path: the bucket's first ``level_cap`` rows and the
+    ``descrip_window`` arguments of its launch on the smoothed image,
+    with centres in base-octave voxels, zyx * 2^o (float32), the
+    bucket's sd and the base ``units``."""
     for (o, s), rows in level_buckets(kp, plan):
         rows = rows[:level_cap(plan, o, params)]
         centers = torch.stack([kp.z[rows], kp.y[rows], kp.x[rows]], -1).float()
-        yield (o, s), rows, centers * float(np.float32(2.0 ** o))
+        centers = centers * float(np.float32(2.0 ** o))
+        sigma, rad, radii, cores = level_geometry(
+            plan.gpyr_level(o, s).scale, units, smoothed.shape)
+        yield (o, s), rows, (smoothed, centers, kp.R[rows], rows.shape[0],
+                             radii, cores, units, sigma, rad, None)
 
 
 def extract_raw_descriptors(vol: torch.Tensor, kp: Keypoints, units, plan,
@@ -170,16 +177,15 @@ def extract_raw_descriptors(vol: torch.Tensor, kp: Keypoints, units, plan,
     octave by scaling their coordinates by 2^o with sd unchanged
     (keypoint2base / scale_Keypoint, sift.c:2094-2115, 1952-1967), so each
     (o, s) bucket keeps its own window size, now in base-octave voxels on
-    the single smoothed image: one kernel launch per non-empty bucket. A
-    bucket keeps its first ``level_cap`` rows, like the JAX package; the
-    rest get zero descriptors.
+    the single smoothed image: one kernel launch per non-empty bucket
+    (``raw_desc_args``). A bucket keeps its first ``level_cap`` rows, like
+    the JAX package; the rest get zero descriptors.
     """
     smoothed = smooth_scale_raw_input(vol, units, params)
     vec = torch.zeros((kp.capacity, DESC_NUMEL), dtype=torch.float32,
                       device=smoothed.device)
-    for (o, s), rows, centers in raw_buckets(kp, plan, params):
-        vec[rows] = extract_level(smoothed, centers, kp.R[rows],
-                                  plan.gpyr_level(o, s).scale, units)
+    for _, rows, args in raw_desc_args(smoothed, kp, plan, params, units):
+        vec[rows] = postprocess(descrip_window(*args))
     factor = torch.exp2(kp.o.to(F64))
     xyz = torch.stack([kp.x * factor, kp.y * factor, kp.z * factor], -1)
     return Descriptors(xyz=xyz, sd=kp.sd, vec=vec, count=kp.count)

@@ -68,14 +68,29 @@ def gather_windows(level: torch.Tensor, vol: torch.Tensor,
                  iy[:, None, :, None], ix[:, None, None, :]]
 
 
+def union_mask(masks: dict, level: torch.Tensor) -> np.ndarray:
+    """The coverage mask of ``level`` (a (B, nz, ny, nx) view) in
+    ``masks``, one per tensor: calls whose rows read one tensor (the
+    raw-image path's single smoothed image) share it, so that
+    ``window_union`` counts each of its voxels once over all of them."""
+    key = (str(level.device), level.data_ptr(), tuple(level.shape))
+    if key not in masks:
+        masks[key] = np.zeros(tuple(level.shape), bool)
+    return masks[key]
+
+
 def window_union(shape, vol: torch.Tensor, starts: torch.Tensor,
-                 cores) -> int:
+                 cores, covered: np.ndarray | None = None) -> int:
     """Voxels of a (B, nz, ny, nx) level that the union of the rows'
     windows (core plus gradient halo) covers, counted per volume on the
     host: windows of nearby keypoints overlap, and a kernel reads each
-    voxel of the union at least once."""
-    covered = np.zeros(tuple(shape), bool)
+    voxel of the union at least once. With ``covered`` (``union_mask``),
+    the windows are marked in it and only the voxels no earlier call
+    marked are counted."""
+    if covered is None:
+        covered = np.zeros(tuple(shape), bool)
+    before = int(covered.sum())
     cz, cy, cx = cores
     for b, (z, y, x) in zip(vol.tolist(), starts.tolist()):
         covered[b, z - 1:z + cz + 1, y - 1:y + cy + 1, x - 1:x + cx + 1] = True
-    return int(covered.sum())
+    return int(covered.sum()) - before

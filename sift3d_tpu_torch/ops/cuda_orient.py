@@ -28,8 +28,10 @@ gradient w gi. Rows at or past ``count`` are zero.
   time), so that masks and weights are the plain version's bit for bit; a
   row's list is split over ``warps_per_row`` warps. Tables are cached per
   geometry up to ``TABLE_CACHE_BYTES``, least recently used first out: the
-  raw-image path's windows span up to a whole 256^3 volume, and its tables
-  there reach 51-127 M entries (0.8-1.9 GiB) a level.
+  raw-image path's windows span up to a whole 256^3 volume, and its
+  octave-5 tables there would hold 51-127 M entries (0.8-1.9 GiB) a level
+  by that geometry (``tests/test_torch_kernels.py`` runs the kernel on
+  tables of 0.6-1.2 GiB, past the cache).
 - The float64 sums keep the keypoint rows exact (an fp32 sum can flip the
   0.90 eigenvalue-ratio or the corner test); on the H100 they set the
   function's bound (``orient_work`` counts it), while the kernel's time
@@ -46,8 +48,9 @@ import torch
 
 from .. import _build
 from ..dtypes import F64
-from ..features.windows import (batch_view, gather_windows, window_gradients,
-                                window_starts, window_union)
+from ..features.windows import (batch_view, gather_windows, union_mask,
+                                window_gradients, window_starts,
+                                window_union)
 
 # Window voxels per chunk of the plain version (bounds its temporaries).
 _CHUNK_VOXELS = 1 << 22
@@ -57,8 +60,12 @@ _CHUNK_VOXELS = 1 << 22
 MAX_LEVELS = 32
 WARPS = 8
 MAX_EXTENT = 511
-# Offset-box candidates per z-slab while a table is built (bounds the
-# build's temporaries), and the bytes of tables kept between calls.
+# Offset-box candidates per z-slab while a table is built, and the bytes
+# of tables kept between calls. The slabs bound the build's temporaries:
+# at MAX_EXTENT with the whole box inside the sphere a build peaks at
+# 35.3 GB a slab at a time and runs out of the card's 80 GB in one pass;
+# with the sphere inscribed, 17.9 GB against 53.7 GB
+# (``scripts/orient_table_memory.py``, NVIDIA H100 80GB HBM3, 700 W).
 TABLE_SLAB = 1 << 24
 TABLE_CACHE_BYTES = 1 << 30
 # Table entries a warp should walk at most: a row's list is split over
@@ -415,20 +422,23 @@ OPS64_VOXEL = 18
 
 
 def orient_work(level, zyx, count: int, radii, cores, units, sigma: float,
-                rad: float, vol=None) -> tuple[int, int, int, int]:
+                rad: float, vol=None,
+                masks: dict | None = None) -> tuple[int, int, int, int]:
     """(bytes, fp32 operations, fp64 operations, voxels counted) that one
     level's rows need (``orient_terms``' arguments): the union of the rows'
     windows (core + halo) read once per volume, each row's 4 ints read and
     its 6 doubles and 3 floats written; the operations from ``OPS_*`` over
     the level's table box and the voxels of each row's core that pass the
-    box and sphere tests."""
+    box and sphere tests. With ``masks`` (``union_mask``), voxels that an
+    earlier level on the same tensor read are not counted again."""
     K = zyx.shape[0]
     level, vol = batch_view(level, K, vol)
     n = min(int(count), K)
     g = _constants(units, sigma, rad)
     zyx = zyx[:n].to(device=level.device, dtype=torch.long)
     starts = window_starts(level.shape[1:], zyx, radii, cores)
-    nbytes = (4 * window_union(level.shape, vol[:n], starts, cores) +
+    covered = None if masks is None else union_mask(masks, level)
+    nbytes = (4 * window_union(level.shape, vol[:n], starts, cores, covered) +
               16 * n + K * (6 * 8 + 3 * 4))
     active = 0
     chunk = max(1, _CHUNK_VOXELS // (cores[0] * cores[1] * cores[2]))
@@ -443,11 +453,14 @@ def orient_work(level, zyx, count: int, radii, cores, units, sigma: float,
 
 def orient_work_levels(rows, levels) -> tuple[int, int, int, int]:
     """``orient_work`` summed over the levels of one
-    ``orient_terms_levels`` call (its arguments)."""
-    tot, r0 = (0, 0, 0, 0), 0
+    ``orient_terms_levels`` call (its arguments). Levels that share a
+    tensor (the raw-image path's buckets all read one smoothed image) read
+    the union of all their windows once."""
+    tot, r0, masks = (0, 0, 0, 0), 0, {}
     for level, n, count, *geom in levels:
         r = rows[r0:r0 + n]
-        w = orient_work(level, r[:, 1:], count, *geom, vol=r[:, 0])
+        w = orient_work(level, r[:, 1:], count, *geom, vol=r[:, 0],
+                        masks=masks)
         tot = tuple(a + b for a, b in zip(tot, w))
         r0 += n
     return tot

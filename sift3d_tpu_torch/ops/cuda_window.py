@@ -51,8 +51,9 @@ import torch
 from .. import _build
 from .._build import NUM_SMS
 from ..config import (BARY_EPS, DESC_NUM_TOTAL_HIST, DESC_NUMEL, NHIST_PER_DIM)
-from ..features.windows import (batch_view, gather_windows, window_gradients,
-                                window_starts, window_union)
+from ..features.windows import (batch_view, gather_windows, union_mask,
+                                window_gradients, window_starts,
+                                window_union)
 from .geometry import face_solve_tables, face_tables, icos_hist_bin, vertex_weights
 
 # Window voxels per chunk of the plain version (bounds its temporaries:
@@ -374,18 +375,24 @@ def descrip_active(level, centers, R, count: int, radii, cores, units,
 
 
 def descrip_work(level, centers, R, count: int, radii, cores, units,
-                 sigma: float, rad: float, vol=None) -> tuple[int, ...]:
+                 sigma: float, rad: float, vol=None,
+                 masks: dict | None = None) -> tuple[int, ...]:
     """(bytes, fp32 operations) that one ``descrip_window`` call needs on
     these inputs, followed by ``descrip_active``'s three voxel counts. The
     bytes: the union of the rows' windows (core + halo) read once per
     volume (windows of nearby keypoints overlap), each row's inputs read
     and its histogram written once; the operations: ``OPS_*`` over the
-    rows' core lines and the voxels that pass the tests."""
+    rows' core lines and the voxels that pass the tests. With ``masks``
+    (``union_mask``), shared by the calls of one path, voxels that an
+    earlier call on the same tensor read are not counted again (the
+    raw-image path's buckets all read one smoothed image)."""
     level, vol = batch_view(level, centers.shape[0], vol)
     n = min(int(count), centers.shape[0])
     starts = window_starts(level.shape[1:], torch.floor(centers[:n]).long(),
                            radii, cores)
-    covered = window_union(level.shape, vol[:n], starts, cores)
+    covered = window_union(level.shape, vol[:n], starts, cores,
+                           None if masks is None else
+                           union_mask(masks, level))
     contrib, geometry, boxes = descrip_active(
         level, centers, R, count, radii, cores, units, sigma, rad, vol)
     nbytes = (4 * covered + n * 4 * (1 + 3 + 3 + 9) +

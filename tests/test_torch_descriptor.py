@@ -141,6 +141,25 @@ def test_descrip_work_counts_window_union():
     assert o2 == 2 * o1 > 0
 
 
+def test_descrip_work_shared_masks_read_a_tensor_once():
+    """Calls that share ``masks`` read one tensor's windows once (the
+    raw-image path's buckets all read one smoothed image); a copy of the
+    tensor is another read."""
+    from sift3d_tpu_torch.ops.cuda_window import descrip_work
+    level = torch.zeros((20, 20, 20))
+    centers = torch.full((1, 3), 10.0)
+    R = torch.eye(3)[None]
+    args = ((3, 3, 3), (8, 8, 8), UNITS, 1.0, 4.0)
+    masks = {}
+    first = descrip_work(level, centers, R, 1, *args, masks=masks)
+    again = descrip_work(level, centers, R, 1, *args, masks=masks)
+    copy = descrip_work(level.clone(), centers, R, 1, *args, masks=masks)
+    window, row = 4 * 10 ** 3, 4 * (1 + 3 + 3 + 9) + 4 * 768
+    assert first[0] == copy[0] == window + row
+    assert again[0] == row
+    assert again[1:] == first[1:] == copy[1:]
+
+
 def test_jax_keypoints_carry_across(jax_side):
     """convert.keypoints_from_numpy keeps every field and the count, and
     head() keeps the first rows of both packages' sets alike."""

@@ -423,6 +423,55 @@ def test_orient_window_kernel_wide_extents(cuda, shape, units, sd, wide):
     assert rel <= 1e-5
 
 
+def test_orient_window_kernel_tables_past_the_cache(cuda, monkeypatch):
+    """Kernel 3 on a 256^3 level with offset tables of 0.6-1.2 GiB (the
+    sizes the raw-image path's windows reach at octaves 4-5): a table
+    larger than TABLE_CACHE_BYTES is built for its call and not kept; of
+    two that do not fit together the older is evicted, and built again
+    when it is met again. Each call against the plain version."""
+    monkeypatch.setattr(cuda_orient, "_statics", cuda_orient._TableCache(
+        cuda_orient.TABLE_CACHE_BYTES))
+    cache = cuda_orient._statics
+    shape, units = (256,) * 3, (1.0, 1.0, 1.0)
+    gen = torch.Generator(device=cuda).manual_seed(13)
+    z, y, x = torch.meshgrid(*(torch.arange(n, device=cuda,
+                                            dtype=torch.float32)
+                               for n in shape), indexing="ij")
+    level = 0.01 * torch.rand(shape, device=cuda, generator=gen)
+    for c, s, a in (((60, 90, 200), 30.0, 1.0), ((180, 150, 70), 45.0, -0.7),
+                    ((128, 20, 128), 20.0, 0.5)):
+        level += a * torch.exp(-((z - c[0]) ** 2 + (y - c[1]) ** 2 +
+                                 (x - c[2]) ** 2) / (2 * s * s))
+    zyx = torch.tensor([[128, 128, 128], [1, 1, 1], [254, 200, 30]],
+                       device=cuda)
+
+    def run(sd):
+        sigma, rad, radii, cores = level_geometry(sd, units, shape)
+        args = (3, radii, cores, units, sigma, rad)
+        got = cuda_orient.orient_terms(level, zyx, *args)
+        want = cuda_orient.orient_terms_plain(level, zyx, *args)
+        torch.cuda.synchronize()
+        rel = _rel_dev(got, (want[0].cpu(), want[1].cpu()))
+        size = cuda_orient.offset_table(shape, radii, cores, units, sigma,
+                                        rad, cuda).numel() * 4
+        print(f"orient table sd {sd}: {size} bytes, cache {cache.bytes} "
+              f"bytes in {len(cache.entries)} tables, max rel dev {rel:.3e}")
+        assert rel <= 1e-5
+        return got, size
+
+    _, big = run(60.0)
+    assert big > cuda_orient.TABLE_CACHE_BYTES
+    assert cache.bytes == 0 and not cache.entries
+    first, a = run(50.0)
+    assert cache.bytes == a and len(cache.entries) == 1
+    _, b = run(48.0)
+    assert a + b > cuda_orient.TABLE_CACHE_BYTES
+    assert cache.bytes == b and len(cache.entries) == 1
+    again, _ = run(50.0)
+    assert torch.equal(again[0], first[0]) and torch.equal(again[1], first[1])
+    assert cache.bytes == a
+
+
 @pytest.mark.parametrize("n", [128, 256])
 def test_descrip_window_kernel_whole_level(cuda, n):
     """Kernel 1 on rows whose core is a whole n^3 level (the raw-image

@@ -180,6 +180,23 @@ def test_orient_work_levels_sums_levels(case):
     assert want[3] > 0
 
 
+def test_orient_work_levels_reads_a_shared_tensor_once(case):
+    """Levels on one tensor (the raw-image path's buckets on one smoothed
+    image) read the union of their windows once; levels on copies, once
+    each."""
+    level, n, count, *geom = case["args"][0]
+    r = torch.as_tensor(case["rows"][0])
+    one = orient_work(level, r[:, 1:], count, *geom, vol=r[:, 0])
+    rows = torch.cat([r, r])
+    shared = orient_work_levels(rows, [case["args"][0]] * 2)
+    copies = orient_work_levels(rows, [case["args"][0],
+                                       (level.clone(), n, count, *geom)])
+    assert list(copies) == [2 * x for x in one]
+    row_bytes = 16 * min(count, n) + n * (6 * 8 + 3 * 4)
+    assert shared[0] == one[0] + row_bytes < copies[0]
+    assert list(shared[1:]) == [2 * x for x in one[1:]]
+
+
 @pytest.mark.parametrize("entries", [1, 31, 512, 513, 2048, 2572, 8181,
                                      40000])
 def test_warps_per_row_covers_each_entry_once(entries):
