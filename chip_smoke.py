@@ -52,7 +52,23 @@ sm_90a, one process per source, into ``build/kernels/``), then:
    its blocks per launch (``slab_plan``) and the share of box voxels that
    pass its geometry tests; kernel 2 at the
    main path's shape and at 2500 x 2300, with its tile side and target
-   ranges (``match_plan``).
+   ranges (``match_plan``);
+7. drives the user surface at 256^3: the raw-image paths (kernel 3 once,
+   kernel 1 once per bucket, each against plain on the first rows), the
+   resampled registration, the kp and reg CLIs on NIfTI files and the
+   warp;
+8. drives this slice: kernels 3 and 1 on thin levels past their old size
+   limits (a table extent above 511, a core above 1024 planes) against
+   plain; kernel 3 on phase 7's raw call with tables and with every level
+   walked as a box; config 3, ``Sift3D().dense`` at 512^3, against the
+   committed C golden (``benches/golden/dense_512_seed7.npz``: the
+   stride-8 subsample and the channel means within 2e-3), with its time
+   and peak memory in the channel-sequential and the all-at-once form;
+   the rotate variant at 128^3 (kernel 3 once per ``DENSE_ORIENT_ROWS``
+   voxels, counted) against the same function with the plain
+   orientation, outside counted near-threshold voxels; ``register_tps``
+   on the 256^3 pair (a deep-interior probe grid within 1.5 voxels of the
+   shift), the TPS warp, ``regSift3D --type tps`` and ``denseSift3D``.
 
 Prints the card's name and power limit, a ``{"kernels": [...]}`` line and,
 last, ``{"ok": true, "device": {...}}``. Exits non-zero, with no result,
@@ -100,6 +116,27 @@ RAW_CHECK_ROWS = (3, 4)    # rows of each bucket checked: kernels 3 and 1
 RAW_DESC_BOUND = 0.2       # rawDescriptorTest (Sift3DTest.m:179-201)
 RAW_ANGLE_BOUND = np.pi / 8  # rawOrientationTest (Sift3DTest.m:205-242)
 CSV_FIELD = re.compile(r"-?\d+\.\d{6}")
+# Phase 8. F1: thin levels past kernel 3's old 511-voxel table extent and
+# kernel 1's old 1024-plane core, with the sd that takes each there.
+F1_K3 = ((600, 8, 8), 140.0)
+F1_K1 = ((1100, 8, 8), 40.0)
+DENSE_SIZE = 512           # config 3 (benches/make_dense_golden.py)
+DENSE_STRIDE = 8
+DENSE_GOLDEN = "benches/golden/dense_512_seed7.npz"
+ROT_SIZE = 128             # the dense rotate variant
+# Every voxel is a row there, and in the blank background between blobs
+# a row's gradients are denormal fp32: its float32 window gradient differs
+# from plain by its rounding in another order, relative to terms near
+# 1e-80. Such rows are held to ORIENT_RTOL of this floor instead (|vd|^2 >=
+# 1e-10 rejects them on both sides, and their outcome is still compared).
+ROT_TERM_FLOOR = 1e-20
+TPS_PROBE = np.arange(96, 161, 16)   # deep-interior probe grid (voxels)
+# The probe's bound at 48^3 (tests/test_tps_shard_match.py). The spline
+# passes through its control points, the affine's inliers, which RANSAC
+# keeps up to err_thresh (5 mm) from the affine: where one lies further
+# from the shift than this, the probe is held to that inlier's distance.
+TPS_PROBE_TOL = 1.5
+CARD = [""]                # the card's name and power limit, once read
 
 
 def log(*a):
@@ -184,14 +221,23 @@ def orient_args(gpyr, ext, plan, limit=None):
     return out
 
 
-def compare_terms(got, want, corner_thresh, where) -> tuple[float, float,
-                                                            int]:
+def near_threshold(A6, vd, corner_thresh):
+    """Rows whose eigenvalue ratio or corner score (from these sums) lies
+    within NEAR_THRESH of its threshold."""
+    from sift3d_tpu_torch.features.orientation import orientation_scores
+    _, _, ratio, corner = orientation_scores(A6, vd)
+    return ((ratio - 0.90).abs() <= NEAR_THRESH).any(-1) | \
+        ((corner - corner_thresh).abs() <= NEAR_THRESH)
+
+
+def compare_terms(got, want, corner_thresh, where,
+                  floor: float = 1e-300) -> tuple[float, float, int]:
     """Kernel 3's sums ``got`` against the plain version's ``want`` (rows
-    below count): within ORIENT_RTOL of each row's largest |term|, and the
-    keypoint sets that follow equal except on near-threshold rows. Returns
-    (max relative deviation, max abs deviation, rows that differ)."""
-    from sift3d_tpu_torch.features.orientation import (
-        orientation_scores, orientations_from_tensor)
+    below count): within ORIENT_RTOL of each row's largest |term| (or of
+    ``floor`` where that is smaller), and the keypoint sets that follow
+    equal except on near-threshold rows. Returns (max relative deviation,
+    max abs deviation, rows that differ)."""
+    from sift3d_tpu_torch.features.orientation import orientations_from_tensor
     (A_k, vd_k), (A_p, vd_p) = got, want
     assert A_k.dtype == torch.float64, "kernel 3 sums must be float64"
     if not A_p.shape[0]:
@@ -199,13 +245,11 @@ def compare_terms(got, want, corner_thresh, where) -> tuple[float, float,
     scale = torch.maximum(A_p.abs().amax(1), vd_p.abs().amax(1).double())
     dev_ = torch.maximum((A_k - A_p).abs().amax(1),
                          (vd_k - vd_p).abs().amax(1).double())
-    rel = (dev_ / scale.clamp(min=1e-300)).max().item()
+    rel = (dev_ / scale.clamp(min=floor)).max().item()
     assert rel <= ORIENT_RTOL, f"{where}: kernel 3 rel dev {rel:.3e}"
     R_k, ok_k = orientations_from_tensor(A_k, vd_k, corner_thresh)
     R_p, ok_p = orientations_from_tensor(A_p, vd_p, corner_thresh)
-    _, _, ratio, corner = orientation_scores(A_p, vd_p)
-    near_rows = ((ratio - 0.90).abs() <= NEAR_THRESH).any(-1) | \
-        ((corner - corner_thresh).abs() <= NEAR_THRESH)
+    near_rows = near_threshold(A_p, vd_p, corner_thresh)
     r_dev = (R_k - R_p).abs().amax((1, 2))
     diff = (ok_k != ok_p) | (ok_k & ok_p & (r_dev > ORIENT_R_TOL))
     bad = diff & ~near_rows
@@ -564,6 +608,416 @@ def angle_median(R1, R2) -> float:
     return float(torch.median(torch.arccos(((tr - 1) / 2).clamp(-1, 1))))
 
 
+def launch_counts() -> tuple[int, int]:
+    """(kernel 1, kernel 3) launches since the counters were zeroed."""
+    from sift3d_tpu_torch.ops import cuda_orient, cuda_window
+    return (cuda_window.descrip_window.launches,
+            cuda_orient.orient_terms_levels.launches)
+
+
+def zero_launch_counts() -> None:
+    from sift3d_tpu_torch.ops import cuda_orient, cuda_window
+    cuda_window.descrip_window.launches = 0
+    cuda_orient.orient_terms_levels.launches = 0
+
+
+def event_ms(fn):
+    """(fn(), its device time in ms by CUDA events)."""
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    out = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return out, start.elapsed_time(end)
+
+
+def rotations(n, seed, dev):
+    rng = np.random.default_rng(seed)
+    return torch.as_tensor(np.array([np.linalg.qr(a)[0] for a in
+                                     rng.standard_normal((n, 3, 3))],
+                                    np.float32)).to(dev)
+
+
+def check_f1(dev, corner_thresh) -> dict:
+    """Kernels 3 and 1 on thin levels past their old limits (ROADMAP F1):
+    a table extent above 511 (kernel 3 walks the rows' boxes) and a core
+    above 1024 planes, each against its plain version with its launch
+    counted, and timed."""
+    from benches.data import make_volume
+    from sift3d_tpu_torch.features import descriptor as fdesc
+    from sift3d_tpu_torch.features.orientation import level_geometry
+    from sift3d_tpu_torch.ops import cuda_orient, cuda_window
+
+    shape, sd = F1_K3
+    level = torch.as_tensor(make_volume(shape, nblob=40, seed=SEED)).to(dev)
+    sigma, rad, radii, cores = level_geometry(sd, RAW_UNITS, shape)
+    ext = cuda_orient.table_extents(radii, cores)
+    assert max(ext) > cuda_orient.MAX_EXTENT and \
+        cuda_orient.box_walk(radii, cores), ext
+    zyx = torch.tensor([[1, 1, 1], [300, 4, 4], [598, 6, 6], [150, 2, 5],
+                        [450, 5, 3], [37, 6, 1]], device=dev)
+    rows = torch.cat([torch.zeros_like(zyx[:, :1]), zyx], 1)
+    args = [(level, len(zyx), len(zyx), radii, cores, RAW_UNITS, sigma, rad)]
+    before = cuda_orient.orient_terms_levels.launches
+    got = cuda_orient.orient_terms_levels(rows, args)
+    torch.cuda.synchronize()
+    launches = cuda_orient.orient_terms_levels.launches - before
+    assert launches == 1, launches
+    want = cuda_orient.orient_terms_levels_plain(rows, args)
+    rel, err, near = compare_terms(got, want, corner_thresh,
+                                   f"F1 kernel 3 {shape}")
+    nb, o32, o64, _ = cuda_orient.orient_work_levels(rows, args)
+    b, by = bound_ms(nb, o32, o64)
+    k3 = dict(shape=shape, extents=ext, rows=len(zyx), launches=launches,
+              max_rel_err=rel, max_abs_err=err, near_threshold_rows=near,
+              ms=cuda_ms(lambda: cuda_orient.orient_terms_levels(rows, args),
+                         5),
+              plain_ms=cuda_ms(lambda: cuda_orient.orient_terms_levels_plain(
+                  rows, args), 1), bound_ms=b, bound_by=by)
+    print(f"F1 orient_window on a {shape} level, table extents {ext} (box "
+          f"walk), {len(zyx)} rows: {launches} launch, max rel dev {rel:.3e} "
+          f"(tolerance {ORIENT_RTOL}), {near} near-threshold rows; "
+          f"{k3['ms']:.4f} ms, plain {k3['plain_ms']:.3f} ms, bound "
+          f"{b:.5f} ms ({by}) [{CARD[0]}]")
+
+    shape, sd = F1_K1
+    level = torch.as_tensor(make_volume(shape, nblob=60,
+                                        seed=SEED + 1)).to(dev)
+    sigma, rad, radii, cores = fdesc.level_geometry(sd, RAW_UNITS, shape)
+    assert cores[0] > 1024, cores
+    centers = torch.tensor([[550.3, 3.6, 4.1], [2.0, 2.0, 2.0],
+                            [1090.5, 5.2, 3.3], [700.0, 4.0, 4.0]],
+                           device=dev)
+    a = (level, centers, rotations(len(centers), SEED, dev), len(centers),
+         radii, cores, RAW_UNITS, sigma, rad, None)
+    before = cuda_window.descrip_window.launches
+    worst = check_descrip_window([(("F1", shape), a)], f"F1 core {cores}")
+    launches1 = cuda_window.descrip_window.launches - before
+    assert launches1 == 1, launches1
+    nb, ops, *_ = cuda_window.descrip_work(*a)
+    b1, by1 = bound_ms(nb, ops)
+    k1 = dict(shape=shape, cores=cores, rows=len(centers),
+              launches=launches1, max_abs_err=worst,
+              slabs=cuda_window.slab_plan(len(centers), cores[0])[1],
+              ms=cuda_ms(lambda: cuda_window.descrip_window(*a), 5),
+              plain_ms=cuda_ms(lambda: cuda_window.descrip_window_plain(*a),
+                               1), bound_ms=b1, bound_by=by1)
+    print(f"F1 descrip_window on a {shape} level, cores {cores} "
+          f"({k1['slabs']} slabs a row), {len(centers)} rows: {launches1} "
+          f"launch, max |dev| {worst:.3e} (tolerance {DESC_TOL}); "
+          f"{k1['ms']:.4f} ms, plain {k1['plain_ms']:.3f} ms, bound "
+          f"{b1:.5f} ms ({by1}) [{CARD[0]}]")
+    return dict(k3=k3, k1=k1)
+
+
+def box_walk_ab(raw_call, corner_thresh) -> dict:
+    """Kernel 3 on the raw-image call of phase 7 with its offset tables and
+    with every level walked as a box (``BOX_WALK_ENTRIES`` = 0), in the
+    order tables, boxes, tables: the two walks agree within ORIENT_RTOL,
+    and their times say which to take for a level whose table fits."""
+    from sift3d_tpu_torch.ops import cuda_orient
+
+    def fn():
+        return cuda_orient.orient_terms_levels(*raw_call)
+
+    def alone():
+        return kernel_alone_ms(fn, "orient_levels_kernel", 3)
+    table = fn()
+    t1 = alone()
+    saved = cuda_orient.BOX_WALK_ENTRIES
+    cuda_orient.BOX_WALK_ENTRIES = 0
+    cuda_orient._statics.clear()
+    try:
+        box = fn()
+        torch.cuda.synchronize()
+        tb = alone()
+        box_events = cuda_ms(fn, 3)
+    finally:
+        cuda_orient.BOX_WALK_ENTRIES = saved
+        cuda_orient._statics.clear()
+    t2 = alone()
+    table_events = cuda_ms(fn, 3)
+    rel, err, near = compare_terms(box, table, corner_thresh,
+                                   f"raw {SIZE}^3 box walk vs tables")
+    print(f"orient_window raw {SIZE}^3, box walk vs tables (A/B): kernel "
+          f"alone tables {t1:.3f}, boxes {tb:.3f}, tables {t2:.3f} ms; by "
+          f"events (table builds included) boxes {box_events:.3f}, tables "
+          f"{table_events:.3f} ms; max rel dev {rel:.3e}, {near} "
+          f"near-threshold rows [{CARD[0]}]")
+    return dict(table_alone_ms=[t1, t2], box_alone_ms=tb,
+                box_events_ms=box_events, table_events_ms=table_events,
+                max_rel_err=rel)
+
+
+def dense_phase(src, dev) -> dict:
+    """Config 3: ``Sift3D().dense`` at 512^3 against the committed golden
+    of the C reference (``benches/make_dense_golden.py``), its time and
+    peak memory by form, and the denseSift3D CLI on the 256^3 volume."""
+    from benches.data import make_volume
+    from sift3d_tpu_torch import api
+    from sift3d_tpu_torch.cli import dense as cli_dense
+    from sift3d_tpu_torch.config import SIFT3DParams
+    from sift3d_tpu_torch.features import dense as fdense
+    from sift3d_tpu_torch.io import Volume, im_read, im_write
+
+    golden = np.load(os.path.join(ROOT, DENSE_GOLDEN))
+    n = DENSE_SIZE
+    t0 = time.perf_counter()
+    vol = make_volume((n,) * 3, nblob=max(60, n // 2), seed=SEED)
+    gen_s = time.perf_counter() - t0
+    params = SIFT3DParams()
+    form = ("channel-sequential" if vol.size >= fdense.DENSE_CHANNEL_SEQ_VOX
+            else "all at once")
+    s = api.Sift3D(params)
+    zero_launch_counts()
+    t0 = time.perf_counter()
+    out = s.dense(vol)
+    api_s = time.perf_counter() - t0
+    counts = launch_counts()
+    assert out.shape == (12, n, n, n) and out.dtype == np.float32
+    assert np.isfinite(out).all()
+    sub = out[:, ::DENSE_STRIDE, ::DENSE_STRIDE, ::DENSE_STRIDE]
+    dev_sub = float(np.abs(sub - golden["sub"]).max())
+    ch_mean = np.array([out[c].mean(dtype=np.float64) for c in range(12)])
+    dev_mean = float(np.abs(ch_mean - golden["ch_mean"]).max())
+    absmax = np.array([np.abs(out[c]).max() for c in range(12)])
+    dev_absmax = float(np.abs(absmax - golden["ch_absmax"]).max())
+    print(f"dense {n}^3 (config 3, {form}) vs the C golden: stride-"
+          f"{DENSE_STRIDE} subsample max |dev| {dev_sub:.3e}, channel means "
+          f"{dev_mean:.3e} (tolerance {DESC_TOL}), channel |max| "
+          f"{dev_absmax:.3e} (not asserted); launches descrip_window "
+          f"{counts[0]} orient_window {counts[1]}")
+    assert dev_sub <= DESC_TOL and dev_mean <= DESC_TOL
+
+    vt = torch.as_tensor(vol).to(dev)
+    runs = []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        out_d, ms = event_ms(lambda: fdense.extract_dense_descriptors(
+            vt, RAW_UNITS, params))
+        runs.append((ms, torch.cuda.max_memory_allocated(dev) - base))
+        del out_d
+    seq_ms, seq_peak = min(runs)
+    saved = fdense.DENSE_CHANNEL_SEQ_VOX
+    fdense.DENSE_CHANNEL_SEQ_VOX = 1 << 62
+    whole = dict(fits=False)
+    try:
+        torch.cuda.empty_cache()
+        base = torch.cuda.memory_allocated(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        out_a, ms = event_ms(lambda: fdense.extract_dense_descriptors(
+            vt, RAW_UNITS, params))
+        peak = torch.cuda.max_memory_allocated(dev) - base
+        dev_forms = float(np.abs(out_a.cpu().numpy() - out).max())
+        whole = dict(fits=True, ms=ms, peak_bytes=peak,
+                     max_abs_dev_from_seq=dev_forms)
+        del out_a
+    except torch.cuda.OutOfMemoryError as e:
+        whole["error"] = str(e).splitlines()[0]
+    finally:
+        fdense.DENSE_CHANNEL_SEQ_VOX = saved
+        torch.cuda.empty_cache()
+    del out
+    print(f"dense {n}^3: Sift3D.dense (numpy in and out) {api_s:.3f} s; "
+          f"on the card {form} {seq_ms:.2f} ms by events, peak "
+          f"{seq_peak / 1e9:.2f} GB above its input; all at once "
+          + (f"{whole['ms']:.2f} ms, peak {whole['peak_bytes'] / 1e9:.2f} GB, "
+             f"max |dev| from the {form} form {whole['max_abs_dev_from_seq']:.3e}"
+             if whole["fits"] else f"does not fit ({whole['error']})")
+          + f"; volume generated in {gen_s:.1f} s on the host [{CARD[0]}]")
+    assert not whole["fits"] or whole["max_abs_dev_from_seq"] <= 2e-5
+
+    build = os.path.join(ROOT, "build")
+    os.makedirs(build, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=build) as tmp:
+        im_write(os.path.join(tmp, "src.nii"), Volume(src))
+        zero_launch_counts()
+        rc, t_cli = run_cli(cli_dense, [os.path.join(tmp, "src.nii"),
+                                        os.path.join(tmp, "ch%.nii")], dev)
+        cli_counts = launch_counts()
+        assert rc == 0, rc
+        chans = [im_read(os.path.join(tmp, f"ch{c}.nii")).data
+                 for c in range(12)]
+        assert not os.path.exists(os.path.join(tmp, "ch12.nii"))
+    want = api.Sift3D(params).dense(src)
+    cli_dev = max(float(np.abs(c - w).max()) for c, w in zip(chans, want))
+    assert all(c.shape == src.shape for c in chans) and cli_dev <= 1e-6
+    print(f"denseSift3D on the {SIZE}^3 image: 12 channel images, max |dev| "
+          f"from Sift3D.dense {cli_dev:.3e}; wall {t_cli['wall']:.3f} s = "
+          f"read {t_cli['read']:.3f} + compute {t_cli['compute']:.3f} + write "
+          f"{t_cli['write']:.3f}; launches descrip_window {cli_counts[0]} "
+          f"orient_window {cli_counts[1]} [{CARD[0]}]")
+    return dict(form=form, counts=counts, api_s=api_s, ms=[r[0] for r in runs],
+                peak_bytes=[r[1] for r in runs], all_at_once=whole,
+                max_abs_dev_sub=dev_sub, max_abs_dev_mean=dev_mean,
+                max_abs_dev_absmax=dev_absmax, volume_gen_s=gen_s,
+                cli=dict(t_cli, counts=cli_counts, max_abs_dev=cli_dev))
+
+
+def rotate_phase(dev, corner_thresh) -> dict:
+    """The rotate variant at ROT_SIZE^3 through ``Sift3D.dense`` (kernel 3
+    one launch per ``DENSE_ORIENT_ROWS`` voxels, counted), its time split
+    into orientation and histograms, and the field against the same
+    function with the plain orientation, outside the voxels whose plain
+    eigenvalue ratio or corner score lies within NEAR_THRESH of its
+    threshold (counted)."""
+    from benches.data import make_volume
+    from sift3d_tpu_torch import api
+    from sift3d_tpu_torch.config import SIFT3DParams
+    from sift3d_tpu_torch.features import dense as fdense
+    from sift3d_tpu_torch.ops import cuda_orient
+
+    n = ROT_SIZE
+    vol = make_volume((n,) * 3, nblob=max(60, n // 2), seed=SEED)
+    params = SIFT3DParams(dense_rotate=True)
+    V = vol.size
+    expect = -(-V // fdense.DENSE_ORIENT_ROWS)
+    zero_launch_counts()
+    t0 = time.perf_counter()
+    out = api.Sift3D(params).dense(vol)
+    api_s = time.perf_counter() - t0
+    counts = launch_counts()
+    print(f"dense rotate {n}^3 through Sift3D.dense: {api_s:.3f} s; "
+          f"launches descrip_window {counts[0]} orient_window {counts[1]} "
+          f"(expected {expect}) [{CARD[0]}]")
+    assert counts == (0, expect), counts
+    assert out.shape == (12, n, n, n) and np.isfinite(out).all()
+
+    vt = torch.as_tensor(vol).to(dev)
+    smooth = fdense.smooth_scale_raw_input(vt, RAW_UNITS, params)
+    (R_k, A_k, vd_k), orient_ms = event_ms(
+        lambda: fdense.dense_orientations(smooth, RAW_UNITS, params))
+    hist_k, hist_ms = event_ms(
+        lambda: fdense.dense_rotate_histograms(smooth, R_k, RAW_UNITS,
+                                               params))
+    out_k = fdense.postproc_hist(hist_k, vt.reshape(-1))
+    api_dev = float(np.abs(out_k.T.reshape(out.shape).cpu().numpy() -
+                           out).max())
+    assert api_dev <= 1e-6, api_dev
+    (R_p, A_p, vd_p), orient_plain_ms = event_ms(
+        lambda: fdense.dense_orientations(
+            smooth, RAW_UNITS, params,
+            terms=cuda_orient.orient_terms_levels_plain))
+    rel, err, diff = compare_terms((A_k, vd_k), (A_p, vd_p), corner_thresh,
+                                   f"rotate {n}^3", floor=ROT_TERM_FLOOR)
+    near = near_threshold(A_p, vd_p, corner_thresh)
+    out_p = fdense.postproc_hist(
+        fdense.dense_rotate_histograms(smooth, R_p, RAW_UNITS, params),
+        vt.reshape(-1))
+    dev_vox = (out_k - out_p).abs().amax(1)
+    far = float(dev_vox[~near].max())
+    print(f"dense rotate {n}^3 vs the same function with the plain "
+          f"orientation: max |dev| {far:.3e} (tolerance {DESC_TOL}) outside "
+          f"{int(near.sum())} near-threshold voxels (their max |dev| "
+          f"{float(dev_vox[near].max()) if near.any() else 0.0:.3e}); kernel "
+          f"3 sums max rel dev {rel:.3e}, {diff} voxels whose orientation "
+          f"differs")
+    assert far <= DESC_TOL, far
+    call = fdense.dense_orient_call(smooth, RAW_UNITS, params, 0,
+                                    min(V, fdense.DENSE_ORIENT_ROWS))
+    nb, o32, o64, active = cuda_orient.orient_work_levels(*call)
+    b, by = bound_ms(nb, o32, o64)
+    k3 = dict(rows=call[0].shape[0], max_rel_err=rel, max_abs_err=err,
+              ms=cuda_ms(lambda: cuda_orient.orient_terms_levels(*call), 3),
+              plain_ms=cuda_ms(lambda: cuda_orient.orient_terms_levels_plain(
+                  *call), 1), bound_ms=b, bound_by=by, active_voxels=active)
+    print(f"dense rotate {n}^3 times: orientation {orient_ms:.2f} ms (plain "
+          f"{orient_plain_ms:.2f}), histograms {hist_ms:.2f} ms by events; "
+          f"kernel 3 on {k3['rows']} rows {k3['ms']:.3f} ms by events (one "
+          f"launch), plain {k3['plain_ms']:.1f} ms, bound {b:.5f} ms ({by}) "
+          f"[{CARD[0]}]")
+    return dict(counts=counts, rows=V, api_s=api_s, orient_ms=orient_ms,
+                orient_plain_ms=orient_plain_ms, hist_ms=hist_ms,
+                near_voxels=int(near.sum()), max_abs_dev=far, k3=k3)
+
+
+def tps_phase(src, ref, dev) -> dict:
+    """``RegSift3D().register_tps`` on the 256^3 pair (the spline maps a
+    deep-interior probe grid within 1.5 voxels of the shift), the TPS warp
+    at 256^3, and ``regSift3D --type tps`` on the pair's NIfTI files."""
+    from benches.data import SHIFT, pair_ok
+    from sift3d_tpu_torch import api
+    from sift3d_tpu_torch.cli import reg as cli_reg
+    from sift3d_tpu_torch.io import Volume, im_read, im_write
+    from sift3d_tpu_torch.io.csv import read_tps
+    from sift3d_tpu_torch.register.tps import im_inv_transform_tps, tps_apply
+
+    reg = api.RegSift3D()
+    zero_launch_counts()
+    t0 = time.perf_counter()
+    res, tps = reg.register_tps(src, ref)
+    torch.cuda.synchronize()
+    reg_s = time.perf_counter() - t0
+    counts = launch_counts()
+    assert res.ok and tps is not None and pair_ok(res.A), "register_tps"
+    assert counts[1] == 2 and counts[0] > 0, counts
+    g = np.stack(np.meshgrid(*[TPS_PROBE] * 3, indexing="ij"),
+                 -1).reshape(-1, 3).astype(np.float64)
+    shift = np.array([-SHIFT, 0.0, 0.0])
+    mapped = tps_apply(tps, torch.as_tensor(g, device=dev)).cpu().numpy()
+    probe_dev = np.abs(mapped - (g + shift)).max(1)
+    probe = float(probe_dev.max())
+    ctrl = tps.ctrl.cpu().numpy()
+    src_at = tps_apply(tps, tps.ctrl).cpu().numpy()
+    resid = np.abs(src_at - (ctrl + shift)).max(1)
+    A_h = np.concatenate([g, np.ones((len(g), 1))], 1) @ res.A.T
+    affine_probe = float(np.abs(A_h - (g + shift)).max())
+    log(f"register_tps probe: max |dev| per point {np.round(probe_dev, 3)}; "
+        f"control points' |dev| from the shift max {resid.max():.3f} mean "
+        f"{resid.mean():.3f}; the affine's probe |dev| {affine_probe:.3f}")
+    bound = max(TPS_PROBE_TOL, float(resid.max()))
+    assert probe <= bound, (probe, bound)
+    src_d = torch.as_tensor(src).to(dev)
+    warp_ms = min(event_ms(lambda: im_inv_transform_tps(tps, src_d))[1]
+                  for _ in range(2))
+    warped = im_inv_transform_tps(tps, src_d).cpu().numpy()
+    inner = (slice(SIZE // 8, -SIZE // 8),) * 3
+    warp_err = float(np.abs(warped[inner] - ref[inner]).mean())
+    n_ctrl = int(tps.ctrl.shape[0])
+    print(f"register_tps {SIZE}^3: ok, {len(res.match_src)} matches, "
+          f"{res.num_inliers} inliers = {n_ctrl} control points, probe grid "
+          f"max |dev| from the shift {probe:.3f} voxels (mean "
+          f"{probe_dev.mean():.3f}; the affine's {affine_probe:.3f}; bound "
+          f"{bound:.3f}: {TPS_PROBE_TOL} or the control points' own max "
+          f"|dev| {resid.max():.3f}); "
+          f"{reg_s:.3f} s host clock; launches descrip_window {counts[0]} "
+          f"orient_window {counts[1]}; TPS warp {warp_ms:.2f} ms by events, "
+          f"interior mean |warped - ref| {warp_err:.4f} [{CARD[0]}]")
+
+    build = os.path.join(ROOT, "build")
+    os.makedirs(build, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=build) as tmp:
+        def f(name):
+            return os.path.join(tmp, name)
+        im_write(f("src.nii"), Volume(src))
+        im_write(f("ref.nii"), Volume(ref))
+        zero_launch_counts()
+        rc, t_cli = run_cli(cli_reg, ["--type", "tps", "--transform",
+                                      f("t.csv"), "--warped", f("w.nii"),
+                                      f("src.nii"), f("ref.nii")], dev)
+        cli_counts = launch_counts()
+        assert rc == 0, rc
+        params, ctrl = read_tps(f("t.csv"))
+        assert params.shape == (3, len(ctrl) + 4) and len(ctrl) >= 5
+        assert im_read(f("w.nii")).data.shape == ref.shape
+    print(f"regSift3D --type tps on the {SIZE}^3 pair: {len(ctrl)} control "
+          f"points; wall {t_cli['wall']:.3f} s = read {t_cli['read']:.3f} + "
+          f"compute {t_cli['compute']:.3f} + write {t_cli['write']:.3f}; "
+          f"launches descrip_window {cli_counts[0]} orient_window "
+          f"{cli_counts[1]} [{CARD[0]}]")
+    return dict(counts=counts, cli_counts=cli_counts, register_s=reg_s,
+                matches=len(res.match_src), inliers=res.num_inliers,
+                n_ctrl=n_ctrl, probe_max_dev=probe,
+                probe_mean_dev=float(probe_dev.mean()),
+                ctrl_max_dev=float(resid.max()),
+                affine_probe_max_dev=affine_probe, warp_ms=warp_ms,
+                warp_interior_mean_err=warp_err, cli=t_cli)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         log("chip_smoke: no CUDA device available")
@@ -584,6 +1038,7 @@ def main() -> int:
 
     dev = torch.device("cuda")
     card = card_line()
+    CARD[0] = card
     print(card)
     log(sys.version.split()[0], torch.__version__, torch.version.cuda)
     detail: dict = {"card": card}
@@ -1075,6 +1530,16 @@ def main() -> int:
           f"{k1_raw['alone_ms']:.3f} ms, plain {k1_raw['plain_ms']:.1f} ms, "
           f"bound {k1_raw['bound_ms']:.4f} ms ({k1_raw['bound_by']}) [{card}]")
 
+    # 8. The sixth slice: kernels 3 and 1 past their old size limits (F1),
+    # dense descriptors (config 3 at 512^3, the rotate variant), TPS
+    # registration and the dense CLI.
+    f1 = check_f1(dev, params.corner_thresh)
+    box_ab = box_walk_ab(raw_call, params.corner_thresh)
+    dense = dense_phase(src, dev)
+    rot = rotate_phase(dev, params.corner_thresh)
+    tps = tps_phase(src, ref, dev)
+    detail.update(f1=f1, box_walk_ab=box_ab, dense=dense, rotate=rot, tps=tps)
+
     log("detail: " + json.dumps(detail))
 
     by_path = {
@@ -1093,6 +1558,12 @@ def main() -> int:
                               cli_kp_256=kp_counts[1],
                               cli_reg_256=reg_counts[1]),
     }
+    for name, i in (("descrip_window", 0), ("orient_window", 1)):
+        by_path[name].update(
+            dense_512=dense["counts"][i], dense_rotate_128=rot["counts"][i],
+            register_tps_256=tps["counts"][i],
+            cli_reg_tps_256=tps["cli_counts"][i],
+            cli_dense_256=dense["cli"]["counts"][i])
     per_reg = "all launches of one 256^3 registration"
     k3_checks = (k3_check, k3_levels_check, k3_batch_check,
                  k3_batch_levels_check)
@@ -1116,7 +1587,12 @@ def main() -> int:
              active_share_256=k1_256["active_share"],
              active_share_batch=k1_batch["active_share"],
              contributing_share_256=k1_256["contributing_share"],
-             contributing_share_batch=k1_batch["contributing_share"]),
+             contributing_share_batch=k1_batch["contributing_share"],
+             f1_shape=f1["k1"]["shape"], f1_cores=f1["k1"]["cores"],
+             f1_ms=f1["k1"]["ms"], f1_plain_ms=f1["k1"]["plain_ms"],
+             f1_bound_ms=f1["k1"]["bound_ms"],
+             f1_bound_by=f1["k1"]["bound_by"],
+             f1_max_abs_err=f1["k1"]["max_abs_err"]),
         dict(name="match_stream", route="cuda",
              source="sift3d_tpu_torch/csrc/match_stream.cu",
              replaces="sift3d_tpu/ops/pallas_match.py:63",
@@ -1154,7 +1630,19 @@ def main() -> int:
              batch_bound_ms=k3_batch["bound_ms"],
              batch_bound_by=k3_batch["bound_by"],
              alone_ms=k3_256["alone_ms"], batch_alone_ms=k3_batch["alone_ms"],
-             levels_256=k3_256["levels"], levels_batch=k3_batch["levels"]),
+             levels_256=k3_256["levels"], levels_batch=k3_batch["levels"],
+             f1_shape=f1["k3"]["shape"], f1_extents=f1["k3"]["extents"],
+             f1_ms=f1["k3"]["ms"], f1_plain_ms=f1["k3"]["plain_ms"],
+             f1_bound_ms=f1["k3"]["bound_ms"],
+             f1_bound_by=f1["k3"]["bound_by"],
+             f1_max_rel_err=f1["k3"]["max_rel_err"],
+             raw_box_walk_alone_ms=box_ab["box_alone_ms"],
+             raw_table_alone_ms=box_ab["table_alone_ms"],
+             rotate_rows=rot["rows"], rotate_ms=rot["k3"]["ms"],
+             rotate_plain_ms=rot["k3"]["plain_ms"],
+             rotate_bound_ms=rot["k3"]["bound_ms"],
+             rotate_bound_by=rot["k3"]["bound_by"],
+             rotate_max_rel_err=rot["k3"]["max_rel_err"]),
     ]
     print(card)
     print(json.dumps({"kernels": kernels}))

@@ -1,7 +1,8 @@
 """User-facing API: keypoints, descriptors and pairwise registration
 (the port of ``sift3d_tpu/api.py``; reference SIFT3D struct, reg/reg.c
 and the Matlab toolbox surface): ``Sift3D`` (detect, extract,
-extract_raw), ``RegSift3D.register`` (with ``resample``), ``warp``,
+extract_raw, dense), ``RegSift3D.register`` (with ``resample``) and
+``register_tps``, ``warp``,
 ``assign_orientations``, ``validate_keypoints``, ``descriptors_from_rows``
 and ``match_descriptors``. Images may be arrays, tensors or ``io.Volume``s,
 whose units override the ``units`` arguments.
@@ -15,7 +16,8 @@ Entry points run on the card unless ``device`` names another device; with
 no card they raise instead of running on the CPU. Each stage runs inside a
 ``torch.profiler.record_function`` span named ``sift3d.<stage>``
 (pyramid, extrema and orientation in ``features/detect.detect``,
-descriptors here, match and ransac in ``register/pipeline``), which a
+descriptors and dense here, match, ransac and tps in
+``register/pipeline``), which a
 profiler trace reads as the stage breakdown. The batched entry points
 (``parallel.pipeline``) use the same spans.
 """
@@ -33,6 +35,7 @@ from .config import MatchParams, RansacParams, SIFT3DParams
 from .dtypes import F64, full_fp32, resolve_device
 from .features import detect as detect_mod
 from .features import match as match_mod
+from .features.dense import extract_dense_descriptors
 from .features.descriptor import (Descriptors, extract_descriptors,
                                   extract_raw_descriptors)
 from .features.keypoints import Keypoints
@@ -40,7 +43,7 @@ from .features.orientation import assign_orientations_raw
 from .io import im_read, im_write  # noqa: F401  (re-exported)
 from .io.volume import Volume
 from .ops.interp import im_inv_transform, im_resample
-from .register.pipeline import register_pair
+from .register.pipeline import register_pair, register_pair_tps
 
 
 def _as_array(im):
@@ -115,6 +118,17 @@ class Sift3D:
             return extract_raw_descriptors(
                 _tensor(data, self.device), kp.to(self.device), units,
                 _plan(data.shape, units, self.params), self.params)
+
+    def dense(self, im, units=(1.0, 1.0, 1.0)) -> np.ndarray:
+        """Dense descriptor image (12, nz, ny, nx) float32
+        (SIFT3D_extract_dense_descriptors, sift.c:2354-2424);
+        ``params.dense_rotate`` selects the rotation-invariant variant."""
+        data, vunits = _as_array(im)
+        units = tuple(vunits or units)
+        with record_function("sift3d.dense"):
+            out = extract_dense_descriptors(_tensor(data, self.device),
+                                            units, self.params)
+        return out.cpu().numpy()
 
 
 def assign_orientations(im, kp: Keypoints, units=(1.0, 1.0, 1.0),
@@ -271,12 +285,42 @@ class RegSift3D:
         res = register_pair(d_src, d_ref, reg_src_units, reg_ref_units,
                             self.match_params, self.ransac_params,
                             kp_overflow=overflow)
-        n = res.num_matches
-        return Registration(
-            A=res.A.cpu().numpy(),
-            match_src=res.match_src[:n].cpu().numpy(),
-            match_ref=res.match_ref[:n].cpu().numpy(),
-            num_inliers=res.num_inliers, ok=res.ok, kp_overflow=overflow)
+        return _registration(res)
+
+    def register_tps(self, src, ref, src_units=(1.0, 1.0, 1.0),
+                     ref_units=(1.0, 1.0, 1.0), reg: float = 1e-6,
+                     ransac_idx=None):
+        """Nonrigid registration (``register_pair_tps``): the affine RANSAC
+        for outlier rejection, then a thin-plate spline fit on its inliers,
+        a capability the reference declares but never implemented
+        (imutil.c:4504-4508). ``ransac_idx`` (H, 4) optionally injects the
+        RANSAC hypothesis draws. Returns (Registration, Tps or None); the
+        spline maps ref mm coordinates to src mm coordinates (warp with
+        ``register.tps.im_inv_transform_tps``)."""
+        src_data, su = _as_array(src)
+        ref_data, ru = _as_array(ref)
+        src_units = tuple(su or src_units)
+        ref_units = tuple(ru or ref_units)
+        d_src, over_src = self._describe(src_data, src_units)
+        d_ref, over_ref = self._describe(ref_data, ref_units)
+        if ransac_idx is not None:
+            ransac_idx = torch.as_tensor(np.asarray(ransac_idx),
+                                         device=self.sift.device)
+        res, tps = register_pair_tps(
+            d_src, d_ref, src_units, ref_units, self.match_params,
+            self.ransac_params, reg=reg, ransac_idx=ransac_idx,
+            kp_overflow=over_src or over_ref)
+        return _registration(res), tps
+
+
+def _registration(res) -> Registration:
+    """The host-side Registration of a ``register_pair`` result."""
+    n = res.num_matches
+    return Registration(
+        A=res.A.cpu().numpy(), match_src=res.match_src[:n].cpu().numpy(),
+        match_ref=res.match_ref[:n].cpu().numpy(),
+        num_inliers=res.num_inliers, ok=res.ok,
+        kp_overflow=res.kp_overflow)
 
 
 def warp(src, A, out_shape_zyx=None, interp: str = "linear",

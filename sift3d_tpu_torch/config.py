@@ -1,8 +1,8 @@
 """Constants and parameter dataclasses of the PyTorch port.
 
 A copy of ``sift3d_tpu/config.py``: the same values, the same frozen
-dataclasses and the same validation, less the fields that only paths the
-port does not have read (``dense_rotate``, ``fused_bucket_cap``);
+dataclasses and the same validation, less the one field that only a path
+the port does not have reads (``fused_bucket_cap``);
 ``convert.params_from_dict`` carries a parameter set across. They
 reproduce the reference's parameter registry (sift3d/sift.c:34-55,
 reg/reg.c:24, imutil/imutil.c:102-103).
@@ -49,6 +49,9 @@ class SIFT3DParams:
     num_kp_levels: int = 3         # keypoint levels per octave
     sigma_n: float = 1.15          # nominal input scale
     sigma0: float = 1.6            # base octave scale
+    # Dense descriptors: the rotation-invariant variant (per-voxel
+    # orientation, sift.c:2521-2588) instead of splat-and-blur.
+    dense_rotate: bool = False
     # Per-level keypoint capacity (the reference grows its keypoint slab
     # without bound, immacros.h:199-222). Extrema past it are dropped and
     # reported as ``kp_overflow``.

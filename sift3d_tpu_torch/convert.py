@@ -29,10 +29,10 @@ from .features.keypoints import Keypoints
 _PARAM_TYPES = (SIFT3DParams, MatchParams, RansacParams)
 
 # Fields of the JAX package that steer paths the port does not have, with
-# their JAX defaults: dense descriptors (``dense_rotate``) and the JAX
-# single-program detect path (``fused_bucket_cap``). They are dropped when
-# they hold the default and refused otherwise.
-_JAX_ONLY = {SIFT3DParams: {"dense_rotate": False, "fused_bucket_cap": 512}}
+# their JAX defaults: the JAX single-program detect path
+# (``fused_bucket_cap``). They are dropped when they hold the default and
+# refused otherwise.
+_JAX_ONLY = {SIFT3DParams: {"fused_bucket_cap": 512}}
 
 
 def params_from_dict(cls, d: dict):

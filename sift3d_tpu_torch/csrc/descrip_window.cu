@@ -80,6 +80,12 @@
 //     computes 10 dot products (the other 10 faces are their antipodes)
 //     and finds the first argmax as a tree over index-ordered halves (the
 //     strict > scan's result: ties go to the lowest face).
+//   - A line's y and z go to shared memory as they are (an earlier
+//     packing of both in one int, 10 bits for y and 11 for z, refused cores
+//     above 1024 voxels; a 1100 x 512 x 512 volume's raw-image windows
+//     reach a 1098-voxel z core), so a core may take any extent. The
+//     block's shared memory is padded so that at most 4 blocks share an SM
+//     (kHistPad).
 //   - Everything else stays fp32, in the first design's order, except
 //     that the three barycentric weights share one division (b_i *
 //     (|g| / sum) in place of b_i / sum * |g|).
@@ -111,6 +117,14 @@ constexpr float kFineGain = 8192.0f;      // 2^13
 constexpr float kBinEps = 1e-3f;          // bin-cube margin of a line's span
 constexpr float kFlat = 1e-6f;            // |d k / d x| below which a line
                                           // runs parallel to a cube face
+// Floats of padding on the block's float histogram, so that its shared
+// memory (46,628 B, plus the 1 KB a block reserves) lets at most 4 blocks
+// share an SM's 228 KB. With a line's y and z unpacked the kernel takes 48
+// registers and 45,092 B, a fifth block fits and leaves L1 about 28 KB for
+// the window reads: 14.79-15.20 ms per config-4 batch against 12.36-12.49
+// padded and 12.42-12.52 before (scripts/descrip_ab.py, NVIDIA H100 80GB
+// HBM3, 700 W).
+constexpr int kHistPad = 384;
 
 struct Params {
   float ux, uy, uz;              // voxel spacing (mm)
@@ -365,12 +379,13 @@ __global__ void __launch_bounds__(kThreads) descrip_window_kernel(
     const float2* __restrict__ range, float* __restrict__ out) {
   __shared__ int ihist[kWarps * kHist];   // this pass's fixed-point sums
   __shared__ int fine[kWarps / 2 * kHist];  // its small voxels' sums
-  __shared__ float hist[kHist];
+  __shared__ float hist[kHist + kHistPad];
   __shared__ float s_vinv[kFaces * 9];
   __shared__ int s_vert[kFaces * 3];
   __shared__ int l_off[kThreads + 1];   // a round's lines: span offsets,
-  __shared__ int l_x0[kThreads];        // first x and packed (dz, dy)
-  __shared__ int l_yz[kThreads];
+  __shared__ int l_x0[kThreads];        // first x, y and z
+  __shared__ int l_y[kThreads];
+  __shared__ int l_z[kThreads];
   __shared__ int warp_sum[kWarps];
   __shared__ float warp_lo[kWarps], warp_hi[kWarps];
 
@@ -464,18 +479,18 @@ __global__ void __launch_bounds__(kThreads) descrip_window_kernel(
   const int nlines = nplanes * cy;
   for (int line0 = 0; line0 < nlines; line0 += kThreads) {
     const int line = line0 + tid;
-    int len = 0, x_lo = 0, packed_yz = 0;
+    int len = 0, x_lo = 0, line_y = 0, line_z = 0;
     if (line < nlines) {
       const int lz = line / cy, ly = line - lz * cy;
-      const int z = sz + z_lo + lz, y = sy + ly;
+      line_z = sz + z_lo + lz;
+      line_y = sy + ly;
       const float vy =
-          __fmul_rn(__fsub_rn(static_cast<float>(y), f.cy), p.uy);
+          __fmul_rn(__fsub_rn(static_cast<float>(line_y), f.cy), p.uy);
       const float vz =
-          __fmul_rn(__fsub_rn(static_cast<float>(z), f.cz), p.uz);
+          __fmul_rn(__fsub_rn(static_cast<float>(line_z), f.cz), p.uz);
       int x_hi;
       line_span(p, f, vy, vz, sx, cx, &x_lo, &x_hi);
       len = max(0, x_hi - x_lo + 1);
-      packed_yz = ((z - sz) << 20) | ((y - sy) << 10);
     }
     // Exclusive prefix sum of len over the block.
     int incl = len;
@@ -491,7 +506,8 @@ __global__ void __launch_bounds__(kThreads) descrip_window_kernel(
     for (int w = 0; w < kWarps; ++w) before += w < warp ? warp_sum[w] : 0;
     l_off[tid] = before + incl - len;
     l_x0[tid] = x_lo;
-    l_yz[tid] = packed_yz;
+    l_y[tid] = line_y;
+    l_z[tid] = line_z;
     if (tid == kThreads - 1) l_off[kThreads] = before + incl;
     __syncthreads();
     const int total = l_off[kThreads];
@@ -515,9 +531,7 @@ __global__ void __launch_bounds__(kThreads) descrip_window_kernel(
         } else {
           while (l_off[a + 1] <= v) ++a;
         }
-        const int pk = l_yz[a];
-        const int z = sz + (pk >> 20), y = sy + ((pk >> 10) & 1023),
-                  x = l_x0[a] + (v - l_off[a]);
+        const int z = l_z[a], y = l_y[a], x = l_x0[a] + (v - l_off[a]);
         float sq, vb[3];
         if (!voxel_frame(p, f, x, y, z, &sq, vb)) continue;
         accumulate(p, f, lv, (static_cast<size_t>(z) * ny + y) * nx + x,
@@ -584,8 +598,7 @@ extern "C" int sift3d_descrip_window(
     const float* normals, const float* tables, const int* face_idx,
     float* out, float* scratch, float* range, void* stream) {
   if (num_rows <= 0) return 0;
-  if (planes < 1 || slabs < 1 || slabs * planes < cz || cz > 1024 ||
-      cy > 1024 || cx > 1024)
+  if (planes < 1 || slabs < 1 || slabs * planes < cz)
     return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   count = max(0, min(count, num_rows));

@@ -53,6 +53,17 @@
 //     FMAs fma(gi gj, w, s) / fma(gi, w, s): one rounding per term instead
 //     of three (within 1e-5 of the plain version's row maximum).
 //
+//   - A level whose table would be too large to build and keep (an
+//     extent above 511, which the 10-bit packing cannot hold, or more than
+//     ops/cuda_orient.BOX_WALK_ENTRIES offsets in its box: the raw-image
+//     path's windows on volumes past 512 a side) has no table: each row
+//     walks its core box cut to |d| <= R, 32 voxels apart per lane in the
+//     same interleaved chunks, and forms |v|^2, the sphere test and the
+//     weight per voxel with the plain version's operations on the card
+//     (unfused fp32 products and sums, exp of (-0.5 |v|^2) * fl(1 /
+//     sigma^2), as torch's division by a scalar does). No window is
+//     clamped, so the sums are the plain version's to its tolerance.
+//
 // What bounds it on the H100: neither device memory nor the fp64 rate
 // (ops/cuda_orient.orient_work counts both).
 // A voxel costs about 1.4 SM cycles against 0.65 to issue its 83
@@ -70,7 +81,8 @@ constexpr int kMaxLevels = 32;
 struct Sift3dOrientLevel {
   const float* level;   // (B, nz, ny, nx)
   const int4* table;    // {level offset, packed d (10 bits an axis,
-                        // biased by 512), w as f64 (lo, hi)}
+                        // biased by 512), w as f64 (lo, hi)}; null: the
+                        // rows walk their core boxes
   int nz, ny, nx;
   int cz, cy, cx;       // clamped core extents
   int rz, ry, rx;       // window half-extents
@@ -80,6 +92,9 @@ struct Sift3dOrientLevel {
   int row0, rows, count;  // rows [row0, row0 + rows); real below count
   int block0;           // first block of the level
   float inv_ux, inv_uy, inv_uz;  // 1 / spacing, rounded in fp32
+  float ux, uy, uz;     // spacing (the box walk's |v|^2)
+  float rad2;           // window radius^2
+  float w_scale;        // 1 / sigma^2, rounded in fp32
 };
 
 struct Sift3dOrientTable {
@@ -117,14 +132,14 @@ struct Row {
   float inv_ux, inv_uy, inv_uz;
 };
 
-// Adds table entry q (level offset, packed d, w) to the nine sums.
-__device__ __forceinline__ void accumulate(const Row& r, int4 q,
-                                           double* s) {
-  const float* v = r.c + q.x;
+// Adds the voxel at level offset `off` from the centre, weight w, to the
+// nine sums.
+__device__ __forceinline__ void accumulate(const Row& r, long long off,
+                                           double w, double* s) {
+  const float* v = r.c + off;
   const float gx = central(__ldg(v + 1), __ldg(v - 1), r.inv_ux);
   const float gy = central(__ldg(v + r.nx), __ldg(v - r.nx), r.inv_uy);
   const float gz = central(__ldg(v + r.plane), __ldg(v - r.plane), r.inv_uz);
-  const double w = __hiloint2double(q.w, q.z);
   const double X = gx, Y = gy, Z = gz;
   // gi * gj of two fp32 values is exact in fp64.
   s[0] = __fma_rn(__dmul_rn(X, X), w, s[0]);
@@ -136,6 +151,12 @@ __device__ __forceinline__ void accumulate(const Row& r, int4 q,
   s[6] = __fma_rn(X, w, s[6]);
   s[7] = __fma_rn(Y, w, s[7]);
   s[8] = __fma_rn(Z, w, s[8]);
+}
+
+// Adds table entry q (level offset, packed d, w) to the nine sums.
+__device__ __forceinline__ void accumulate(const Row& r, int4 q,
+                                           double* s) {
+  accumulate(r, q.x, __hiloint2double(q.w, q.z), s);
 }
 
 // Entries e, e + step, ... of the table, in that order. A row whose core
@@ -165,7 +186,51 @@ __device__ __forceinline__ void walk(const Row& r, const int4* table,
   }
 }
 
-__global__ void __launch_bounds__(kThreads) orient_levels_kernel(
+// A row with no table: voxels e, e + step, ... of its core box cut to
+// |d| <= R (offsets [lo, lo + n) per axis, x fastest), each tested against
+// the sphere and weighted here. The linear index is carried as mixed-radix
+// digits, so a step costs no division.
+__device__ __forceinline__ void walk_box(const Row& r,
+                                         const Sift3dOrientLevel& L, int e,
+                                         int step, double* s) {
+  const int lz = max(r.lz, -L.rz), ly = max(r.ly, -L.ry),
+            lx = max(r.lx, -L.rx);
+  const int nz = min(r.hz, L.rz) - lz + 1, ny = min(r.hy, L.ry) - ly + 1,
+            nx = min(r.hx, L.rx) - lx + 1;
+  if (nz <= 0 || ny <= 0 || nx <= 0) return;
+  int x = e % nx, y = e / nx % ny, z = e / nx / ny;
+  const int sx = step % nx, sy = step / nx % ny, sz = step / nx / ny;
+  while (z < nz) {
+    const int dz = lz + z, dy = ly + y, dx = lx + x;
+    const float vx = __fmul_rn(static_cast<float>(dx), L.ux);
+    const float vy = __fmul_rn(static_cast<float>(dy), L.uy);
+    const float vz = __fmul_rn(static_cast<float>(dz), L.uz);
+    const float sq = __fadd_rn(__fadd_rn(__fmul_rn(vx, vx), __fmul_rn(vy, vy)),
+                               __fmul_rn(vz, vz));
+    if (sq <= L.rad2) {
+      const float w = expf(__fmul_rn(__fmul_rn(-0.5f, sq), L.w_scale));
+      accumulate(r, static_cast<long long>(dz) * r.plane +
+                        static_cast<long long>(dy) * r.nx + dx,
+                 static_cast<double>(w), s);
+    }
+    x += sx;
+    int carry = 0;
+    if (x >= nx) {
+      x -= nx;
+      carry = 1;
+    }
+    y += sy + carry;
+    if (y >= ny) {
+      y -= ny;
+      ++z;
+    }
+    z += sz;
+  }
+}
+
+// At most 64 registers a thread, so that 4 blocks fit an SM as before the
+// box walk (which took the kernel to 74 registers and 3 blocks an SM).
+__global__ void __launch_bounds__(kThreads, 4) orient_levels_kernel(
     const Sift3dOrientTable t, const int* __restrict__ rows,
     double* __restrict__ a6, float* __restrict__ vd) {
   int l = 0;
@@ -202,7 +267,8 @@ __global__ void __launch_bounds__(kThreads) orient_levels_kernel(
     const bool full = r.lz <= -L.ez && r.hz >= L.ez && r.ly <= -L.ey &&
                       r.hy >= L.ey && r.lx <= -L.ex && r.hx >= L.ex;
     const int e = (piece << 5) + lane, step = 32 << lw;
-    if (full) walk<true>(r, L.table, L.entries, e, step, s);
+    if (L.table == nullptr) walk_box(r, L, e, step, s);
+    else if (full) walk<true>(r, L.table, L.entries, e, step, s);
     else walk<false>(r, L.table, L.entries, e, step, s);
   }
 

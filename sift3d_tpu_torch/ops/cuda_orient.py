@@ -32,6 +32,14 @@ gradient w gi. Rows at or past ``count`` are zero.
   octave-5 tables there would hold 51-127 M entries (0.8-1.9 GiB) a level
   by that geometry (``tests/test_torch_kernels.py`` runs the kernel on
   tables of 0.6-1.2 GiB, past the cache).
+- A level whose table would hold an extent past ``MAX_EXTENT`` (the 10-bit
+  packing) or more than ``BOX_WALK_ENTRIES`` offsets in its box has no
+  table (``box_walk``): its rows walk their core boxes and the kernel forms
+  the mask and the weights per voxel by the plain version's operations.
+  The raw-image path meets such levels on volumes past 512 voxels a side
+  (a 600 x 512 x 512 volume's levels (6, 1) and (6, 2) have extents
+  (581, 509, 509) and (597, 509, 509)): a table there would hold up to
+  1.2 G entries (20 GB) and its build would peak near twice that.
 - The float64 sums keep the keypoint rows exact (an fp32 sum can flip the
   0.90 eigenvalue-ratio or the corner test); on the H100 they set the
   function's bound (``orient_work`` counts it), while the kernel's time
@@ -42,6 +50,7 @@ from __future__ import annotations
 
 import collections
 import ctypes
+import math
 
 import numpy as np
 import torch
@@ -68,6 +77,10 @@ MAX_EXTENT = 511
 # (``scripts/orient_table_memory.py``, NVIDIA H100 80GB HBM3, 700 W).
 TABLE_SLAB = 1 << 24
 TABLE_CACHE_BYTES = 1 << 30
+# Offsets in a table's box above which a level has no table and its rows
+# walk their boxes (``box_walk``): such a table takes up to 2 GiB and its
+# build twice that, and it would not be kept between calls.
+BOX_WALK_ENTRIES = 1 << 27
 # Table entries a warp should walk at most: a row's list is split over
 # more warps (up to WARPS) until it does.
 ENTRIES_PER_WARP = 512
@@ -78,11 +91,13 @@ def _constants(units, sigma: float, rad: float) -> dict:
     version (rounded as the JAX package rounds them)."""
     u = [np.float32(x) for x in units]
     rad32, sig32 = np.float32(rad), np.float32(sigma)
+    sig2 = sig32 * sig32
     return dict(ux=float(u[0]), uy=float(u[1]), uz=float(u[2]),
                 inv_ux=float(np.float32(1.0) / u[0]),
                 inv_uy=float(np.float32(1.0) / u[1]),
                 inv_uz=float(np.float32(1.0) / u[2]),
-                rad2=float(rad32 * rad32), sig2=float(sig32 * sig32))
+                rad2=float(rad32 * rad32), sig2=float(sig2),
+                w_scale=float(np.float32(1.0) / sig2))
 
 
 def _sq(dz, dy, dx, g):
@@ -176,6 +191,15 @@ def table_extents(radii, cores) -> tuple[int, int, int]:
     return tuple(min(r, c - 1) for r, c in zip(radii, cores))
 
 
+def box_walk(radii, cores) -> bool:
+    """True when a level's rows walk their core boxes instead of an offset
+    table: an extent past MAX_EXTENT, or more than BOX_WALK_ENTRIES
+    offsets in the table's box."""
+    ext = table_extents(radii, cores)
+    return (max(ext) > MAX_EXTENT or
+            math.prod(2 * e + 1 for e in ext) > BOX_WALK_ENTRIES)
+
+
 def _pack(dz, dy, dx):
     """Offsets |d| <= MAX_EXTENT as one non-negative int32: 10 bits an
     axis, biased by 512."""
@@ -244,7 +268,9 @@ class _Level(ctypes.Structure):
                     "nz", "ny", "nx", "cz", "cy", "cx", "rz", "ry", "rx",
                     "ez", "ey", "ex", "entries", "log2_warps", "row0", "rows",
                     "count", "block0")] +
-                [(f, ctypes.c_float) for f in ("inv_ux", "inv_uy", "inv_uz")])
+                [(f, ctypes.c_float) for f in ("inv_ux", "inv_uy", "inv_uz",
+                                                "ux", "uy", "uz", "rad2",
+                                                "w_scale")])
 
 
 class _TableCache:
@@ -284,18 +310,25 @@ _statics = _TableCache(TABLE_CACHE_BYTES)
 def _level_static(shape, radii, cores, units, sigma, rad, device):
     """(the kernel's ``_Level`` with the fields that depend on the level's
     geometry alone, rows per block, the offset table), cached per geometry
-    and device: detections of one plan reuse them."""
+    and device: detections of one plan reuse them. A ``box_walk`` level
+    has an empty table and a null table pointer."""
     key = (str(device), tuple(shape), tuple(radii), tuple(cores),
            tuple(units), sigma, rad)
     st = _statics.get(key)
     if st is None:
-        tab = offset_table(shape, radii, cores, units, sigma, rad, device)
-        P = warps_per_row(tab.shape[0])
+        ext = table_extents(radii, cores)
+        if box_walk(radii, cores):
+            tab = torch.empty((0, 4), dtype=torch.int32, device=device)
+            P = warps_per_row(math.prod(2 * e + 1 for e in ext))
+        else:
+            tab = offset_table(shape, radii, cores, units, sigma, rad,
+                               device)
+            P = warps_per_row(tab.shape[0])
         g = _constants(units, sigma, rad)
-        lv = _Level(0, tab.data_ptr(), *shape, *cores, *radii,
-                    *table_extents(radii, cores), tab.shape[0],
-                    P.bit_length() - 1, 0, 0, 0, 0, g["inv_ux"], g["inv_uy"],
-                    g["inv_uz"])
+        lv = _Level(0, tab.data_ptr() if tab.numel() else None, *shape,
+                    *cores, *radii, *ext, tab.shape[0], P.bit_length() - 1,
+                    0, 0, 0, 0, g["inv_ux"], g["inv_uy"], g["inv_uz"],
+                    g["ux"], g["uy"], g["uz"], g["rad2"], g["w_scale"])
         st = (lv, WARPS // P, tab)
         _statics.put(key, st)
     return st

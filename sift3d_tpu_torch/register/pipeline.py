@@ -7,6 +7,8 @@ with RANSAC in mm space, and convert the transform back to voxel space
 (mm2im, reg.c:79-117). The affine A (3x4) maps *ref* voxel coordinates to
 *src* voxel coordinates, like the reference's output. ``register_pairs``
 registers a batch of pairs at once; ``register_pair`` is a batch of one.
+``register_pair_tps`` fits a thin-plate spline on the inliers of that
+affine (``register/tps.py``).
 """
 
 from __future__ import annotations
@@ -22,6 +24,7 @@ from ..features.descriptor import Descriptors
 from ..features.match import matches_to_coords, nn_match
 from ..ops.cuda_match import nn_match_streamed
 from .ransac import find_tform_ransac
+from .tps import fit_tps
 
 
 @dataclasses.dataclass
@@ -35,6 +38,9 @@ class RegistrationResult:
     num_matches: int
     num_inliers: int
     ok: bool
+    # (N_src,) bool: the rows of match_src / match_ref that the mm-space
+    # affine's consensus set holds.
+    inlier_mask: torch.Tensor
     # True when keypoints were truncated at a level capacity upstream of
     # the descriptors (the reference's keypoint store is unbounded,
     # immacros.h:199-222, so loss must be surfaced).
@@ -106,7 +112,7 @@ def register_pairs(desc_src: Descriptors, desc_ref: Descriptors,
     return RegistrationResult(
         A=A, matches=matches, match_src=src_xyz, match_ref=ref_xyz,
         num_matches=n_match, num_inliers=res.num_inliers, ok=res.ok,
-        kp_overflow=kp_overflow)
+        inlier_mask=res.inlier_mask, kp_overflow=kp_overflow)
 
 
 def _batch_of_one(d: Descriptors) -> Descriptors:
@@ -132,4 +138,35 @@ def register_pair(desc_src: Descriptors, desc_ref: Descriptors,
     return RegistrationResult(
         A=res.A[0], matches=res.matches[0], match_src=res.match_src[0],
         match_ref=res.match_ref[0], num_matches=n_match, num_inliers=n_in,
-        ok=bool(ok), kp_overflow=kp_overflow)
+        ok=bool(ok), inlier_mask=res.inlier_mask[0], kp_overflow=kp_overflow)
+
+
+def register_pair_tps(desc_src: Descriptors, desc_ref: Descriptors,
+                      src_units, ref_units,
+                      match_params: MatchParams = MatchParams(),
+                      ransac_params: RansacParams = RansacParams(),
+                      reg: float = 1e-6,
+                      ransac_idx: torch.Tensor | None = None,
+                      kp_overflow: bool = False):
+    """Nonrigid registration: the affine RANSAC of ``register_pair`` for
+    outlier rejection, then a thin-plate spline fit on its inliers (a
+    capability the reference declares but never implemented,
+    imutil.c:4504-4508).
+
+    The spline maps ref mm coordinates to src mm coordinates (warp with
+    ``register.tps.im_inv_transform_tps``). Its control points are the
+    inliers of the mm-space affine that the returned result holds, taken
+    from that same run (``ransac_idx`` (H, 4) optionally injects its
+    hypothesis draws). Returns (RegistrationResult, Tps or None): None
+    when the affine stage found no model or fewer than 5 inliers.
+    """
+    res = register_pair(desc_src, desc_ref, src_units, ref_units,
+                        match_params, ransac_params, ransac_idx, kp_overflow)
+    if not res.ok:      # also fewer than RANSAC_MIN_INLIERS inliers
+        return res, None
+    n = res.num_matches
+    inl = res.inlier_mask[:n]
+    src_mm = im2mm(res.match_src[:n][inl], src_units)
+    ref_mm = im2mm(res.match_ref[:n][inl], ref_units)
+    with record_function("sift3d.tps"):
+        return res, fit_tps(ref_mm, src_mm, reg=reg)

@@ -46,6 +46,19 @@ def _level(rng, shape):
     return vol.astype(np.float32)
 
 
+def _thin_level(rng, shape):
+    """Blobs centred inside every axis: a level thin in y and x (the F1
+    shapes) with structure all along z."""
+    grids = np.meshgrid(*(np.arange(n) for n in shape), indexing="ij")
+    vol = np.zeros(shape)
+    for _ in range(shape[0] // 8):
+        c = [rng.uniform(0, n) for n in shape]
+        s = rng.uniform(1.5, 4.0)
+        vol += rng.uniform(-1, 1) * np.exp(
+            -sum((g - a) ** 2 for g, a in zip(grids, c)) / (2 * s * s))
+    return vol.astype(np.float32)
+
+
 def _descrip_args(rng, shape, K, units):
     centers = torch.as_tensor(np.stack(
         [rng.uniform(2, n - 3, K) for n in shape], -1).astype(np.float32))
@@ -512,3 +525,105 @@ def test_descrip_window_kernel_whole_level(cuda, n):
           f"row's largest bin {rel}, of the descriptors {dev:.3e}")
     assert dev <= 2e-3
     assert max(rel) <= 1e-4
+
+
+def test_orient_window_kernel_box_walk_past_extent_511(cuda, monkeypatch):
+    """F1: kernel 3 on a thin (600, 8, 8) level whose table extent (597)
+    passes the 10-bit packing: the rows walk their boxes (no table), in the
+    middle, at both ends and past count, against the plain version. Then a
+    level that has a table, walked both ways: the box walk (forced by
+    BOX_WALK_ENTRIES = 0) agrees with the table walk and the plain
+    version."""
+    monkeypatch.setattr(cuda_orient, "_statics", cuda_orient._TableCache(
+        cuda_orient.TABLE_CACHE_BYTES))
+    rng = np.random.default_rng(21)
+    for shape, sd, units in (((600, 8, 8), 140.0, (1.0, 1.0, 1.0)),
+                             ((300, 40, 36), 25.0, (1.0, 1.3, 0.8))):
+        level = torch.as_tensor(_thin_level(rng, shape)).to(cuda)
+        sigma, rad, radii, cores = level_geometry(sd, units, shape)
+        ext = cuda_orient.table_extents(radii, cores)
+        zyx = np.stack([rng.integers(1, n - 1, 7) for n in shape], -1)
+        zyx[0] = (1, 1, 1)
+        zyx[1] = tuple(n - 2 for n in shape)
+        zyx[2] = tuple(n // 2 for n in shape)
+        zyx = torch.as_tensor(zyx).to(cuda)
+        args = (5, radii, cores, units, sigma, rad)
+        want = cuda_orient.orient_terms_plain(level, zyx[:5], *args)
+        want = (want[0].cpu(), want[1].cpu())
+        assert (want[0].abs().amax(1) > 0).all()
+        walks = [False, True] if max(ext) <= cuda_orient.MAX_EXTENT else [True]
+        for forced in walks:
+            monkeypatch.setattr(cuda_orient, "BOX_WALK_ENTRIES",
+                                0 if forced else 1 << 27)
+            cuda_orient._statics.clear()
+            assert cuda_orient.box_walk(radii, cores) == forced
+            before = cuda_orient.orient_terms_levels.launches
+            got = cuda_orient.orient_terms(level, zyx, *args)
+            torch.cuda.synchronize()
+            assert cuda_orient.orient_terms_levels.launches == before + 1
+            assert not got[0][5:].any() and not got[1][5:].any()
+            rel = _rel_dev((got[0][:5], got[1][:5]), want)
+            print(f"orient {shape} extents {ext} box walk {forced}: max rel "
+                  f"dev {rel:.3e}")
+            assert rel <= 1e-5
+
+
+def test_descrip_window_kernel_core_past_1024(cuda):
+    """F1: kernel 1 on a thin (1100, 8, 8) level whose core is 1098 planes
+    deep (past the old 1024), split into z-slabs, against the plain
+    version."""
+    rng = np.random.default_rng(22)
+    shape, units = (1100, 8, 8), (1.0, 1.0, 1.0)
+    level = torch.as_tensor(_thin_level(rng, shape)).to(cuda)
+    sigma = float(np.float32(40.0) * np.float32(DESC_SIG_FCTR))
+    rad = float(np.float32(DESC_RAD_FCTR) * np.float32(sigma))
+    radii = tuple(int(math.ceil(rad / u)) for u in units)
+    cores = tuple(window_extent(r, m, False) for r, m in zip(radii, shape))
+    assert cores == (1098, 6, 6)
+    centers = torch.tensor([[550.3, 3.6, 4.1], [2.0, 2.0, 2.0],
+                            [1090.5, 5.2, 3.3], [700.0, 4.0, 4.0]],
+                           device=cuda)
+    R = torch.as_tensor(np.array([np.linalg.qr(a)[0] for a in
+                                  rng.standard_normal((4, 3, 3))],
+                                 np.float32)).to(cuda)
+    geom = (radii, cores, units, sigma, rad)
+    want = cuda_window.descrip_window_plain(level, centers[:3], R[:3], 3,
+                                            *geom).cpu()
+    assert (want.abs().amax(1) > 0).all()
+    before = cuda_window.descrip_window.launches
+    got = cuda_window.descrip_window(level, centers, R, 3, *geom)
+    torch.cuda.synchronize()
+    assert cuda_window.descrip_window.launches == before + 1
+    assert cuda_window.slab_plan(3, cores[0])[1] > 1
+    assert not got[3].any()
+    got = got[:3].cpu()
+    rel = ((got - want).abs().amax(1) / want.abs().amax(1)).tolist()
+    dev = (postprocess(got) - postprocess(want)).abs().max().item()
+    print(f"descrip core {cores}: max |dev| of the raw rows over each row's "
+          f"largest bin {rel}, of the descriptors {dev:.3e}")
+    assert dev <= 2e-3
+    assert max(rel) <= 1e-4
+
+
+def test_orient_window_kernel_every_voxel_a_row(cuda):
+    """Kernel 3 as the dense rotate variant calls it: every voxel of a
+    64^3 level a row of one level at sd = sigma0, in one launch, against
+    the plain version on the card."""
+    from sift3d_tpu_torch.config import SIFT3DParams
+    from sift3d_tpu_torch.features.dense import dense_orientations
+    rng = np.random.default_rng(23)
+    shape = (64, 64, 64)
+    level = torch.as_tensor(_level(rng, shape)).to(cuda)
+    params = SIFT3DParams(dense_rotate=True)
+    before = cuda_orient.orient_terms_levels.launches
+    R_k, A_k, vd_k = dense_orientations(level, (1.0, 1.0, 1.0), params)
+    torch.cuda.synchronize()
+    assert cuda_orient.orient_terms_levels.launches == before + 1
+    R_p, A_p, vd_p = dense_orientations(
+        level, (1.0, 1.0, 1.0), params,
+        terms=cuda_orient.orient_terms_levels_plain)
+    assert cuda_orient.orient_terms_levels.launches == before + 1
+    assert A_k.shape == (64 ** 3, 6)
+    rel = _rel_dev((A_k, vd_k), (A_p.cpu(), vd_p.cpu()))
+    print(f"orient every voxel of {shape}: max rel dev {rel:.3e}")
+    assert rel <= 1e-5

@@ -57,6 +57,19 @@ def _level(rng, shape):
     return vol.astype(np.float32)
 
 
+def _thin_level(rng, shape):
+    """Blobs centred inside every axis: a level thin in y and x with
+    structure all along z."""
+    grids = np.meshgrid(*(np.arange(n) for n in shape), indexing="ij")
+    vol = np.zeros(shape)
+    for _ in range(shape[0] // 8):
+        c = [rng.uniform(0, n) for n in shape]
+        s = rng.uniform(1.5, 4.0)
+        vol += rng.uniform(-1, 1) * np.exp(
+            -sum((g - a) ** 2 for g, a in zip(grids, c)) / (2 * s * s))
+    return vol.astype(np.float32)
+
+
 def _rows(rng, shape, n):
     zyx = np.stack([rng.integers(1, s - 1, n) for s in shape], -1)
     zyx[0] = (1, 1, 1)                                   # clamped low
@@ -363,3 +376,153 @@ def test_table_cache_evicts_least_recent_by_bytes():
     assert [k for k in cache.entries] == [2, 0, 3]
     cache.put(4, (None, 1, torch.zeros((8, 8), dtype=torch.int32)))  # 256 B
     assert cache.get(4) is None and cache.bytes == 3 * 64
+
+
+# F1: the raw-image paths on volumes past 512 voxels a side. Levels whose
+# table extents pass MAX_EXTENT (or whose table box passes
+# BOX_WALK_ENTRIES) have no table; their rows walk their core boxes.
+def _raw_geometry(shape):
+    """{(o, s): (orientation table extents, box_walk, descriptor cores)}
+    of the raw-image path's keypoint levels on a ``shape`` volume."""
+    from sift3d_tpu_torch import pyramid as pyr
+    from sift3d_tpu_torch.config import SIFT3DParams
+    from sift3d_tpu_torch.features import descriptor as tdesc
+    from sift3d_tpu_torch.features.detect import kp_levels
+    plan = pyr.plan_pyramid(shape[::-1], (1.0, 1.0, 1.0), SIFT3DParams())
+    out = {}
+    for o, s in kp_levels(plan):
+        sd = plan.gpyr_level(o, s).scale
+        _, _, radii, cores = tori.level_geometry(sd, (1.0, 1.0, 1.0), shape)
+        out[(o, s)] = (table_extents(radii, cores),
+                       cuda_orient.box_walk(radii, cores),
+                       tdesc.level_geometry(sd, (1.0, 1.0, 1.0), shape)[3])
+    return out
+
+
+def test_f1_geometry_past_the_old_limits():
+    """At 600 x 512 x 512 the orientation tables of levels (6, 1) and
+    (6, 2) reach extents (581, 509, 509) and (597, 509, 509), past the
+    10-bit packing; at 1100 x 512 x 512 the descriptor core reaches 1098
+    on z, past kernel 1's old 1024. Both are taken: the orientation levels
+    as box walks (no table, 8 warps a row), the cores by the launcher."""
+    g = _raw_geometry((600, 512, 512))
+    assert g[(6, 1)][0] == (581, 509, 509)
+    assert g[(6, 2)][0] == (597, 509, 509)
+    assert all(walk for ext, walk, _ in g.values()
+               if max(ext) > cuda_orient.MAX_EXTENT)
+    sigma, rad, radii, cores = tori.level_geometry(
+        160.0, (1.0, 1.0, 1.0), (600, 512, 512))
+    assert table_extents(radii, cores) == (597, 509, 509)
+    lv, per_block, tab = cuda_orient._level_static(
+        (600, 512, 512), radii, cores, (1.0, 1.0, 1.0), sigma, rad, "cpu")
+    assert tab.numel() == 0 and lv.entries == 0 and not lv.table
+    assert per_block == 1 and lv.log2_warps == 3
+    with pytest.raises(ValueError, match="orient_window"):
+        offset_table((600, 512, 512), radii, cores, (1.0, 1.0, 1.0), sigma,
+                     rad, "cpu")
+    g = _raw_geometry((1100, 512, 512))
+    assert max(c[0] for _, _, c in g.values()) == 1098
+    assert g[(4, 2)][2] == (1098, 510, 510)
+    # At 512^3 nothing passes MAX_EXTENT, but the largest boxes (from level
+    # (5, 1), 583^3 offsets) pass BOX_WALK_ENTRIES.
+    g = _raw_geometry((512, 512, 512))
+    assert max(max(e) for e, _, _ in g.values()) == 509
+    assert [lv for lv, (_, walk, _) in g.items() if walk] == \
+        [(5, 1), (5, 2), (6, 0), (6, 1), (6, 2)]
+
+
+def _walk_box(shape, zyx, radii, cores, g, warps=8):
+    """The kernel's box walk of one row (``walk_box`` in
+    ``csrc/orient_window.cu``), lane by lane with its mixed-radix steps:
+    the (z, y, x) voxels it counts, each with the kernel's fp32 weight."""
+    f = np.float32
+    starts = window_starts(shape, torch.as_tensor(zyx)[None], radii,
+                           cores)[0].numpy()
+    lo_core = starts - np.asarray(zyx)
+    hi_core = lo_core + np.asarray(cores) - 1
+    lo = np.maximum(lo_core, -np.asarray(radii))
+    n = np.minimum(hi_core, np.asarray(radii)) - lo + 1
+    step = 32 * warps
+    vox, w = [], []
+    sx, sy, sz = step % n[2], step // n[2] % n[1], step // n[2] // n[1]
+    for e in range(step):
+        x, y, z = e % n[2], e // n[2] % n[1], e // n[2] // n[1]
+        while z < n[0]:
+            d = lo + (z, y, x)
+            v = [f(f(d[a]) * f(g[k])) for a, k in ((2, "ux"), (1, "uy"),
+                                                   (0, "uz"))]
+            sq = f(f(f(v[0] * v[0]) + f(v[1] * v[1])) + f(v[2] * v[2]))
+            if sq <= f(g["rad2"]):
+                vox.append(d + zyx)
+                w.append(np.exp(f(f(f(-0.5) * sq) * f(g["w_scale"]))))
+            x += sx
+            carry = x >= n[2]
+            x -= n[2] * carry
+            y += sy + carry
+            if y >= n[1]:
+                y -= n[1]
+                z += 1
+            z += sz
+    return np.array(vox).reshape(-1, 3), np.array(w, np.float64)
+
+
+@pytest.mark.parametrize("units,sd,shape", [
+    ((1.0, 1.0, 1.0), 140.0, (600, 8, 8)),      # a thin level, extent 597
+    ((1.0, 1.3, 0.8), 1.6, (30, 32, 28)),
+    ((1.0, 1.0, 1.0), 3.0, (8, 10, 12)),        # cores clamped to n - 2
+])
+def test_box_walk_visits_exactly_the_mask(units, sd, shape):
+    """Every voxel the plain version counts is visited once, with the
+    plain version's weight to fp32 rounding, and no other voxel: rows in
+    the middle, at the edges and at random positions. The weights differ from the CPU's
+    plain version by a few fp32 ulps: it divides by sigma^2, where torch
+    on the card and the kernel multiply by its fp32 reciprocal."""
+    rng = np.random.default_rng(4)
+    sigma, rad, radii, cores = tori.level_geometry(sd, units, shape)
+    g = cuda_orient._constants(units, sigma, rad)
+    zyx = np.stack([rng.integers(1, s - 1, 5) for s in shape], -1)
+    zyx[0] = (1, 1, 1)
+    zyx[1] = tuple(s - 2 for s in shape)
+    zyx[2] = tuple(s // 2 for s in shape)
+    for c in zyx:
+        vox, w = _walk_box(shape, c, radii, cores, g)
+        starts, sq, in_box = cuda_orient._frame(
+            shape, torch.as_tensor(c)[None], radii, cores, g)
+        mask = (in_box & (sq <= g["rad2"]))[0]
+        want_w = cuda_orient._weight(sq, g)[0][mask].double().numpy()
+        want = (torch.nonzero(mask) + starts[0]).numpy()
+        order = np.lexsort(vox.T[::-1])
+        np.testing.assert_array_equal(vox[order], want)
+        np.testing.assert_allclose(w[order], want_w, rtol=1e-6, atol=0)
+
+
+def test_box_walk_sums_equal_plain_on_a_thin_level():
+    """The box walk's float64 sums on a (600, 8, 8) level whose table
+    extent (597) passes the packing equal the plain version's within 1e-6
+    of each row's largest |term| (the weights agree to fp32 rounding)."""
+    rng = np.random.default_rng(6)
+    shape, units, sd = (600, 8, 8), (1.0, 1.0, 1.0), 140.0
+    level = torch.as_tensor(_thin_level(rng, shape))
+    sigma, rad, radii, cores = tori.level_geometry(sd, units, shape)
+    assert table_extents(radii, cores)[0] > cuda_orient.MAX_EXTENT
+    assert cuda_orient.box_walk(radii, cores)
+    g = cuda_orient._constants(units, sigma, rad)
+    zyx = np.array([[300, 4, 4], [1, 1, 1], [598, 6, 2], [37, 3, 5]])
+    A6, vd = orient_terms_plain(level, torch.as_tensor(zyx), 4, radii, cores,
+                                units, sigma, rad)
+    lv = level.numpy()
+    inv = [np.float32(1.0) / np.float32(u) for u in units]
+    f = np.float32
+    for k, c in enumerate(zyx):
+        vox, w = _walk_box(shape, c, radii, cores, g)
+        z, y, x = vox.T
+        gx = (f(0.5) * (lv[z, y, x + 1] - lv[z, y, x - 1])) * inv[0]
+        gy = (f(0.5) * (lv[z, y + 1, x] - lv[z, y - 1, x])) * inv[1]
+        gz = (f(0.5) * (lv[z + 1, y, x] - lv[z - 1, y, x])) * inv[2]
+        G = [t.astype(np.float64) for t in (gx, gy, gz)]
+        got = np.array([np.sum(G[i] * G[j] * w) for i, j in
+                        ((0, 0), (0, 1), (0, 2), (1, 1), (1, 2), (2, 2))] +
+                       [np.sum(G[i] * w) for i in range(3)])
+        want = np.concatenate([A6[k].numpy(), vd[k].numpy()])
+        assert np.abs(want).max() > 0
+        assert np.abs(got - want).max() <= 1e-6 * np.abs(want).max()

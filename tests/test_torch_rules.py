@@ -35,7 +35,8 @@ def test_import_pulls_in_no_jax():
             "sift3d_tpu_torch.parallel.pipeline, sift3d_tpu_torch.io, "
             "sift3d_tpu_torch.io.dicom, sift3d_tpu_torch.cli.kp, "
             "sift3d_tpu_torch.cli.reg, sift3d_tpu_torch.ops.interp, "
-            "sift3d_tpu_torch.ops.draw, sift3d_tpu_torch.features.dense\n"
+            "sift3d_tpu_torch.ops.draw, sift3d_tpu_torch.features.dense, "
+            "sift3d_tpu_torch.cli.dense, sift3d_tpu_torch.register.tps\n"
             "bad = [m for m in sys.modules if m == 'jax' or "
             "m.startswith(('jax.', 'jaxlib', 'sift3d_tpu.')) or "
             "m == 'sift3d_tpu']\n"
@@ -66,13 +67,17 @@ def test_sources_name_no_jax(path):
 def test_entry_points_refuse_cpu_fallback():
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present: the default device is valid")
+    vol = np.zeros((16, 16, 16), np.float32)
     with pytest.raises(RuntimeError, match="CUDA"):
         Sift3D()
     with pytest.raises(RuntimeError, match="CUDA"):
+        Sift3D().dense(vol)
+    with pytest.raises(RuntimeError, match="CUDA"):
         RegSift3D()
     with pytest.raises(RuntimeError, match="CUDA"):
+        RegSift3D().register_tps(vol, vol)
+    with pytest.raises(RuntimeError, match="CUDA"):
         resolve_device("cuda")
-    vol = np.zeros((16, 16, 16), np.float32)
     with pytest.raises(RuntimeError, match="CUDA"):
         warp(vol, np.eye(3, 4))
     with pytest.raises(RuntimeError, match="CUDA"):
@@ -84,11 +89,17 @@ def test_entry_points_refuse_cpu_fallback():
                                    np.zeros((1, 16, 16, 16)), None,
                                    SIFT3DParams())
     assert resolve_device("cpu") == torch.device("cpu")
+    # Sift3D.dense and RegSift3D.register_tps on the CPU when asked.
+    assert Sift3D(device="cpu").dense(vol).shape == (12, 16, 16, 16)
+    assert RegSift3D(device="cpu").register_tps(vol, vol)[1] is None
 
 
 @pytest.mark.parametrize("cli,argv", [
     ("kp", ["--keys", "k.csv", "missing.nii"]),
     ("reg", ["--transform", "t.csv", "missing.nii", "missing.nii"]),
+    ("reg", ["--type=tps", "--transform", "t.csv", "missing.nii",
+             "missing.nii"]),
+    ("dense", ["missing.nii", "out%.nii"]),
 ])
 def test_cli_refuses_cpu_fallback(cli, argv, tmp_path):
     """Without a card a CLI's ``main`` raises before it reads anything,
@@ -150,7 +161,6 @@ def test_params_from_dict(cls, kw):
 
 
 @pytest.mark.parametrize("name,default,other", [
-    ("dense_rotate", False, True),
     ("fused_bucket_cap", 512, 64),
 ])
 def test_params_from_dict_jax_only_fields(name, default, other):
@@ -159,6 +169,13 @@ def test_params_from_dict_jax_only_fields(name, default, other):
     assert not hasattr(p, name)
     with pytest.raises(ValueError, match=name):
         params_from_dict(SIFT3DParams, {name: other})
+
+
+@pytest.mark.parametrize("value", [False, True])
+def test_params_from_dict_carries_dense_rotate(value):
+    p = params_from_dict(SIFT3DParams, {"peak_thresh": 0.05,
+                                        "dense_rotate": value})
+    assert p == SIFT3DParams(peak_thresh=0.05, dense_rotate=value)
 
 
 def test_small_volume_rejected():
