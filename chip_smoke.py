@@ -3,7 +3,8 @@
     python3 chip_smoke.py
 
 Builds the port's CUDA kernels from ``sift3d_tpu_torch/csrc`` (nvcc,
-sm_90a, one process per source, into ``build/kernels/``), then:
+sm_90a, one process per source, into ``build/kernels/``), checks that
+kernel 1's shared-memory carveout holds 4 blocks an SM, then:
 
 1. holds the descriptor-window kernel (1) against its plain PyTorch
    version on the real pyramid levels of a 256^3 volume (max abs deviation
@@ -59,16 +60,17 @@ sm_90a, one process per source, into ``build/kernels/``), then:
    warp;
 8. drives this slice: kernels 3 and 1 on thin levels past their old size
    limits (a table extent above 511, a core above 1024 planes) against
-   plain; kernel 3 on phase 7's raw call with tables and with every level
-   walked as a box; config 3, ``Sift3D().dense`` at 512^3, against the
+   plain (phase 7's raw call walks the boxes of its octave-4 and -5
+   levels); config 3, ``Sift3D().dense`` at 512^3, against the
    committed C golden (``benches/golden/dense_512_seed7.npz``: the
    stride-8 subsample and the channel means within 2e-3), with its time
    and peak memory in the channel-sequential and the all-at-once form;
    the rotate variant at 128^3 (kernel 3 once per ``DENSE_ORIENT_ROWS``
    voxels, counted) against the same function with the plain
    orientation, outside counted near-threshold voxels; ``register_tps``
-   on the 256^3 pair (a deep-interior probe grid within 1.5 voxels of the
-   shift), the TPS warp, ``regSift3D --type tps`` and ``denseSift3D``.
+   on the 256^3 pair (against a numpy fit on the same inliers, and a
+   deep-interior probe grid against the shift), the TPS warp,
+   ``regSift3D --type tps`` and ``denseSift3D``.
 
 Prints the card's name and power limit, a ``{"kernels": [...]}`` line and,
 last, ``{"ok": true, "device": {...}}``. Exits non-zero, with no result,
@@ -131,10 +133,17 @@ ROT_SIZE = 128             # the dense rotate variant
 # 1e-10 rejects them on both sides, and their outcome is still compared).
 ROT_TERM_FLOOR = 1e-20
 TPS_PROBE = np.arange(96, 161, 16)   # deep-interior probe grid (voxels)
-# The probe's bound at 48^3 (tests/test_tps_shard_match.py). The spline
-# passes through its control points, the affine's inliers, which RANSAC
-# keeps up to err_thresh (5 mm) from the affine: where one lies further
-# from the shift than this, the probe is held to that inlier's distance.
+# The card's spline is held to a float64 numpy fit on the host from the
+# same inlier coordinates (params, mm) and must map its control points onto
+# their matched source points (mm; reg moves them by reg |w|, 3.8e-8 mm at
+# 48^3 on the CPU). The probe's bound at 48^3 is 1.5 voxels
+# (tests/test_tps_shard_match.py); the spline passes through the inliers,
+# which RANSAC keeps up to err_thresh (5 mm) from the affine, so the probe
+# is held to the larger of that and the inliers' own largest distance from
+# the shift (match data, not the spline's output).
+TPS_REG = 1e-6             # register_tps's default bending-energy term
+TPS_PARAM_TOL = 1e-6
+TPS_CTRL_TOL = 1e-5
 TPS_PROBE_TOL = 1.5
 CARD = [""]                # the card's name and power limit, once read
 
@@ -490,14 +499,9 @@ def count_buckets(kp, ext) -> tuple[int, int]:
     return n_orient, n_desc
 
 
-def kernel_alone_ms(fn, name, reps: int) -> float:
-    """Device time of the kernels whose name holds ``name`` (or one of a
-    tuple of names), per call of ``fn``, from the profiler's trace of
-    ``reps`` calls."""
-    names = (name,) if isinstance(name, str) else tuple(name)
-    import tempfile
-    fn()
-    torch.cuda.synchronize()
+def _trace_us(fn, names, reps: int) -> list[float]:
+    """Durations (us) of the kernels whose name holds one of ``names`` in
+    the profiler's trace of ``reps`` calls of ``fn``."""
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
@@ -509,9 +513,26 @@ def kernel_alone_ms(fn, name, reps: int) -> float:
         prof.export_chrome_trace(path)
         with open(path) as f:
             events = json.load(f)["traceEvents"]
-    us = [e["dur"] for e in events if e.get("ph") == "X" and
-          e.get("cat") == "kernel" and
-          any(n in e.get("name", "") for n in names)]
+    return [e["dur"] for e in events if e.get("ph") == "X" and
+            e.get("cat") == "kernel" and
+            any(n in e.get("name", "") for n in names)]
+
+
+def kernel_alone_ms(fn, name, reps: int) -> float:
+    """Device time of the kernels whose name holds ``name`` (or one of a
+    tuple of names), per call of ``fn``, from the profiler's trace of
+    ``reps`` calls. A trace can lack kernel records (on the H100 two
+    readings came out at 2/3 and 1/10 of the same call's time by events,
+    as if one record of 3 and 9 of 10 were missing), and a lost record
+    only lowers the count: the trace is taken twice, a third time when
+    the two counts differ, and the fullest is used."""
+    names = (name,) if isinstance(name, str) else tuple(name)
+    fn()
+    torch.cuda.synchronize()
+    traces = [_trace_us(fn, names, reps) for _ in range(2)]
+    if len(traces[0]) != len(traces[1]):
+        traces.append(_trace_us(fn, names, reps))
+    us = max(traces, key=len)
     assert us, f"no {name} kernel in the profile"
     return sum(us) / 1e3 / reps
 
@@ -712,45 +733,6 @@ def check_f1(dev, corner_thresh) -> dict:
     return dict(k3=k3, k1=k1)
 
 
-def box_walk_ab(raw_call, corner_thresh) -> dict:
-    """Kernel 3 on the raw-image call of phase 7 with its offset tables and
-    with every level walked as a box (``BOX_WALK_ENTRIES`` = 0), in the
-    order tables, boxes, tables: the two walks agree within ORIENT_RTOL,
-    and their times say which to take for a level whose table fits."""
-    from sift3d_tpu_torch.ops import cuda_orient
-
-    def fn():
-        return cuda_orient.orient_terms_levels(*raw_call)
-
-    def alone():
-        return kernel_alone_ms(fn, "orient_levels_kernel", 3)
-    table = fn()
-    t1 = alone()
-    saved = cuda_orient.BOX_WALK_ENTRIES
-    cuda_orient.BOX_WALK_ENTRIES = 0
-    cuda_orient._statics.clear()
-    try:
-        box = fn()
-        torch.cuda.synchronize()
-        tb = alone()
-        box_events = cuda_ms(fn, 3)
-    finally:
-        cuda_orient.BOX_WALK_ENTRIES = saved
-        cuda_orient._statics.clear()
-    t2 = alone()
-    table_events = cuda_ms(fn, 3)
-    rel, err, near = compare_terms(box, table, corner_thresh,
-                                   f"raw {SIZE}^3 box walk vs tables")
-    print(f"orient_window raw {SIZE}^3, box walk vs tables (A/B): kernel "
-          f"alone tables {t1:.3f}, boxes {tb:.3f}, tables {t2:.3f} ms; by "
-          f"events (table builds included) boxes {box_events:.3f}, tables "
-          f"{table_events:.3f} ms; max rel dev {rel:.3e}, {near} "
-          f"near-threshold rows [{CARD[0]}]")
-    return dict(table_alone_ms=[t1, t2], box_alone_ms=tb,
-                box_events_ms=box_events, table_events_ms=table_events,
-                max_rel_err=rel)
-
-
 def dense_phase(src, dev) -> dict:
     """Config 3: ``Sift3D().dense`` at 512^3 against the committed golden
     of the C reference (``benches/make_dense_golden.py``), its time and
@@ -935,10 +917,27 @@ def rotate_phase(dev, corner_thresh) -> dict:
                 near_voxels=int(near.sum()), max_abs_dev=far, k3=k3)
 
 
+def tps_fit_numpy(ctrl, targets, reg: float) -> np.ndarray:
+    """(3, n + 4) params of the thin-plate spline through ``ctrl`` ->
+    ``targets`` ((n, 3) float64 each) with ``reg`` on K's diagonal, solved
+    by numpy on the host: the system of ``register/tps.fit_tps``, built
+    independently of it."""
+    n = len(ctrl)
+    d = ctrl[:, None, :] - ctrl[None, :, :]
+    r2 = np.sum(d * d, -1)
+    K = np.where(r2 > 0, r2 * np.log(np.where(r2 > 0, r2, 1.0)), 0.0)
+    K += reg * np.eye(n)
+    P = np.concatenate([np.ones((n, 1)), ctrl], 1)
+    L = np.block([[K, P], [P.T, np.zeros((4, 4))]])
+    rhs = np.concatenate([targets, np.zeros((4, 3))], 0)
+    return np.linalg.solve(L, rhs).T
+
+
 def tps_phase(src, ref, dev) -> dict:
-    """``RegSift3D().register_tps`` on the 256^3 pair (the spline maps a
-    deep-interior probe grid within 1.5 voxels of the shift), the TPS warp
-    at 256^3, and ``regSift3D --type tps`` on the pair's NIfTI files."""
+    """``RegSift3D().register_tps`` on the 256^3 pair (the spline against a
+    numpy fit on the same inliers and its probe grid against the shift),
+    the TPS warp at 256^3, and ``regSift3D --type tps`` on the pair's NIfTI
+    files."""
     from benches.data import SHIFT, pair_ok
     from sift3d_tpu_torch import api
     from sift3d_tpu_torch.cli import reg as cli_reg
@@ -949,41 +948,59 @@ def tps_phase(src, ref, dev) -> dict:
     reg = api.RegSift3D()
     zero_launch_counts()
     t0 = time.perf_counter()
-    res, tps = reg.register_tps(src, ref)
+    res, tps = reg.register_tps(src, ref, reg=TPS_REG)
     torch.cuda.synchronize()
     reg_s = time.perf_counter() - t0
     counts = launch_counts()
     assert res.ok and tps is not None and pair_ok(res.A), "register_tps"
     assert counts[1] == 2 and counts[0] > 0, counts
+    inl = res.inlier_mask
+    n_ctrl = int(tps.ctrl.shape[0])
+    assert int(inl.sum()) == res.num_inliers == n_ctrl, (inl.sum(), n_ctrl)
+    # Units are 1, so the matches' voxel coordinates are their mm.
+    ref_in = res.match_ref[inl].astype(np.float64)
+    src_in = res.match_src[inl].astype(np.float64)
+    want = tps_fit_numpy(ref_in, src_in, TPS_REG)
+    param_err = float(np.abs(tps.params.cpu().numpy() - want).max())
+    ctrl_err = float(np.abs(tps.ctrl.cpu().numpy() - ref_in).max())
+    at_ctrl = tps_apply(tps, tps.ctrl).cpu().numpy()
+    interp_err = float(np.abs(at_ctrl - src_in).max())
+    assert param_err <= TPS_PARAM_TOL and ctrl_err == 0.0, (param_err,
+                                                            ctrl_err)
+    assert interp_err <= TPS_CTRL_TOL, interp_err
     g = np.stack(np.meshgrid(*[TPS_PROBE] * 3, indexing="ij"),
                  -1).reshape(-1, 3).astype(np.float64)
     shift = np.array([-SHIFT, 0.0, 0.0])
     mapped = tps_apply(tps, torch.as_tensor(g, device=dev)).cpu().numpy()
     probe_dev = np.abs(mapped - (g + shift)).max(1)
     probe = float(probe_dev.max())
-    ctrl = tps.ctrl.cpu().numpy()
-    src_at = tps_apply(tps, tps.ctrl).cpu().numpy()
-    resid = np.abs(src_at - (ctrl + shift)).max(1)
+    inl_dev = np.abs(src_in - (ref_in + shift)).max(1)
     A_h = np.concatenate([g, np.ones((len(g), 1))], 1) @ res.A.T
     affine_probe = float(np.abs(A_h - (g + shift)).max())
     log(f"register_tps probe: max |dev| per point {np.round(probe_dev, 3)}; "
-        f"control points' |dev| from the shift max {resid.max():.3f} mean "
-        f"{resid.mean():.3f}; the affine's probe |dev| {affine_probe:.3f}")
-    bound = max(TPS_PROBE_TOL, float(resid.max()))
+        f"inliers' |dev| from the shift max {inl_dev.max():.3f} mean "
+        f"{inl_dev.mean():.3f}; the affine's probe |dev| {affine_probe:.3f}")
+    bound = max(TPS_PROBE_TOL, float(inl_dev.max()))
     assert probe <= bound, (probe, bound)
+    print(f"register_tps vs a float64 numpy fit on the same {n_ctrl} "
+          f"inliers: params max |dev| {param_err:.3e} (tolerance "
+          f"{TPS_PARAM_TOL}), control points exact, spline at them vs their "
+          f"matched source points max |dev| {interp_err:.3e} mm (tolerance "
+          f"{TPS_CTRL_TOL}); probe {probe:.3f} voxels, "
+          f"{'within' if probe <= TPS_PROBE_TOL else 'NOT within'} "
+          f"{TPS_PROBE_TOL} of the shift")
     src_d = torch.as_tensor(src).to(dev)
     warp_ms = min(event_ms(lambda: im_inv_transform_tps(tps, src_d))[1]
                   for _ in range(2))
     warped = im_inv_transform_tps(tps, src_d).cpu().numpy()
     inner = (slice(SIZE // 8, -SIZE // 8),) * 3
     warp_err = float(np.abs(warped[inner] - ref[inner]).mean())
-    n_ctrl = int(tps.ctrl.shape[0])
     print(f"register_tps {SIZE}^3: ok, {len(res.match_src)} matches, "
           f"{res.num_inliers} inliers = {n_ctrl} control points, probe grid "
           f"max |dev| from the shift {probe:.3f} voxels (mean "
           f"{probe_dev.mean():.3f}; the affine's {affine_probe:.3f}; bound "
-          f"{bound:.3f}: {TPS_PROBE_TOL} or the control points' own max "
-          f"|dev| {resid.max():.3f}); "
+          f"{bound:.3f}: {TPS_PROBE_TOL} or the inliers' own max |dev| "
+          f"{inl_dev.max():.3f}); "
           f"{reg_s:.3f} s host clock; launches descrip_window {counts[0]} "
           f"orient_window {counts[1]}; TPS warp {warp_ms:.2f} ms by events, "
           f"interior mean |warped - ref| {warp_err:.4f} [{CARD[0]}]")
@@ -1013,7 +1030,8 @@ def tps_phase(src, ref, dev) -> dict:
                 matches=len(res.match_src), inliers=res.num_inliers,
                 n_ctrl=n_ctrl, probe_max_dev=probe,
                 probe_mean_dev=float(probe_dev.mean()),
-                ctrl_max_dev=float(resid.max()),
+                inlier_max_dev=float(inl_dev.max()), param_err=param_err,
+                ctrl_interp_err=interp_err,
                 affine_probe_max_dev=affine_probe, warp_ms=warp_ms,
                 warp_interior_mean_err=warp_err, cli=t_cli)
 
@@ -1051,6 +1069,9 @@ def main() -> int:
     for name, out in _build.build_log.items():
         log(f"--- nvcc {name}.cu\n{out.strip()}")
     detail["build_s"] = build_s
+    per_sm = cuda_window.blocks_per_sm()
+    print(f"descrip_window: {per_sm} blocks an SM with its carveout set")
+    assert per_sm == 4, per_sm
 
     reg = RegSift3D(device=dev)
     assert not torch.backends.cuda.matmul.allow_tf32
@@ -1399,9 +1420,12 @@ def main() -> int:
           f"{raw_pyr:.4f} (rawDescriptorTest bound {RAW_DESC_BOUND}), median "
           f"angle between R {ang:.4f} rad over {int(acc.sum())} of {n} "
           f"accepted (rawOrientationTest bound {RAW_ANGLE_BOUND:.4f})")
-    tables = []
+    tables, boxes = [], 0
     for a in raw_call[1]:
         if not a[1]:
+            continue
+        if cuda_orient.box_walk(a[3], a[4]):
+            boxes += 1
             continue
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
@@ -1417,13 +1441,14 @@ def main() -> int:
     print(f"orient_window raw {SIZE}^3 tables: {len(tables)} levels, "
           f"{sum(t['bytes'] for t in tables)} bytes, largest "
           f"{max(t['entries'] for t in tables)} entries, built in "
-          f"{sum(t['build_ms'] for t in tables):.2f} ms by events [{card}]")
+          f"{sum(t['build_ms'] for t in tables):.2f} ms by events; {boxes} "
+          f"levels walk their boxes [{card}]")
     detail["raw"] = dict(
         orient_counts=raw_orient_counts, desc_counts=raw_desc_counts,
         orient_check=dict(rows=int(keep.numel()), max_rel_err=rel3,
                           max_abs_err=abs3, near_threshold_rows=near3),
         desc_check=worst1_raw, raw_vs_pyramid_desc=raw_pyr,
-        raw_vs_pyramid_angle=ang, tables=tables)
+        raw_vs_pyramid_angle=ang, tables=tables, box_walk_levels=boxes)
 
     # 7b. Resampled registration (regAnisoTest at size).
     aniso = np.ascontiguousarray(src[::2])
@@ -1534,11 +1559,10 @@ def main() -> int:
     # dense descriptors (config 3 at 512^3, the rotate variant), TPS
     # registration and the dense CLI.
     f1 = check_f1(dev, params.corner_thresh)
-    box_ab = box_walk_ab(raw_call, params.corner_thresh)
     dense = dense_phase(src, dev)
     rot = rotate_phase(dev, params.corner_thresh)
     tps = tps_phase(src, ref, dev)
-    detail.update(f1=f1, box_walk_ab=box_ab, dense=dense, rotate=rot, tps=tps)
+    detail.update(f1=f1, dense=dense, rotate=rot, tps=tps)
 
     log("detail: " + json.dumps(detail))
 
@@ -1636,8 +1660,7 @@ def main() -> int:
              f1_bound_ms=f1["k3"]["bound_ms"],
              f1_bound_by=f1["k3"]["bound_by"],
              f1_max_rel_err=f1["k3"]["max_rel_err"],
-             raw_box_walk_alone_ms=box_ab["box_alone_ms"],
-             raw_table_alone_ms=box_ab["table_alone_ms"],
+             raw_box_walk_levels=boxes,
              rotate_rows=rot["rows"], rotate_ms=rot["k3"]["ms"],
              rotate_plain_ms=rot["k3"]["plain_ms"],
              rotate_bound_ms=rot["k3"]["bound_ms"],

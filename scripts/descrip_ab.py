@@ -11,8 +11,9 @@ batch (``chip_smoke.py`` phase 5's arguments: 64 pairs of 64^3 at
 ``bench.py``'s caps), by CUDA events (the mean of 3 calls after a warm-up
 call), in the order A B ... B A, ``--rounds`` times: the builds take turns
 on one card, so their times compare. Each build's histograms are held
-against the first build's. Needs the card; prints the card's name and
-power limit, then one JSON line.
+against the first build's, and a build that sets its shared-memory
+carveout reports the blocks an SM then holds. Needs the card; prints the
+card's name and power limit, then one JSON line.
 """
 
 from __future__ import annotations
@@ -103,12 +104,16 @@ def main() -> int:
         for i in order + order[::-1]:
             _build._libs["descrip_window"] = libs[i]
             times[i].append(cs.cuda_ms(run, 3))
+    per_sm = [lib.sift3d_descrip_blocks_per_sm()
+              if hasattr(lib, "sift3d_descrip_blocks_per_sm") else None
+              for lib in libs]
     print(json.dumps({"card": card, "launches": len(args),
                       "rows": sum(x[3] for x in args),
                       "builds": [dict(source=s, ms=t, min_ms=min(t),
-                                      max_abs_dev_from_first=d)
-                                 for s, t, d in zip(a.sources, times,
-                                                    dev_max)]}))
+                                      max_abs_dev_from_first=d,
+                                      blocks_per_sm=b)
+                                 for s, t, d, b in zip(a.sources, times,
+                                                       dev_max, per_sm)]}))
     return 0
 
 

@@ -219,6 +219,8 @@ class Registration:
     num_inliers: int
     ok: bool
     kp_overflow: bool              # keypoints dropped at a level capacity
+    inlier_mask: np.ndarray        # (M,) bool: the affine's inliers (the
+                                   # control points of ``register_tps``)
 
 
 def _scale_descriptors(desc: Descriptors, factors) -> Descriptors:
@@ -320,7 +322,8 @@ def _registration(res) -> Registration:
         A=res.A.cpu().numpy(), match_src=res.match_src[:n].cpu().numpy(),
         match_ref=res.match_ref[:n].cpu().numpy(),
         num_inliers=res.num_inliers, ok=res.ok,
-        kp_overflow=res.kp_overflow)
+        kp_overflow=res.kp_overflow,
+        inlier_mask=res.inlier_mask[:n].cpu().numpy())
 
 
 def warp(src, A, out_shape_zyx=None, interp: str = "linear",

@@ -84,8 +84,8 @@
 //     packing of both in one int, 10 bits for y and 11 for z, refused cores
 //     above 1024 voxels; a 1100 x 512 x 512 volume's raw-image windows
 //     reach a 1098-voxel z core), so a core may take any extent. The
-//     block's shared memory is padded so that at most 4 blocks share an SM
-//     (kHistPad).
+//     kernel's shared-memory carveout holds at most 4 blocks an SM
+//     (kBlocksPerSm).
 //   - Everything else stays fp32, in the first design's order, except
 //     that the three barycentric weights share one division (b_i *
 //     (|g| / sum) in place of b_i / sum * |g|).
@@ -117,14 +117,13 @@ constexpr float kFineGain = 8192.0f;      // 2^13
 constexpr float kBinEps = 1e-3f;          // bin-cube margin of a line's span
 constexpr float kFlat = 1e-6f;            // |d k / d x| below which a line
                                           // runs parallel to a cube face
-// Floats of padding on the block's float histogram, so that its shared
-// memory (46,628 B, plus the 1 KB a block reserves) lets at most 4 blocks
-// share an SM's 228 KB. With a line's y and z unpacked the kernel takes 48
-// registers and 45,092 B, a fifth block fits and leaves L1 about 28 KB for
-// the window reads: 14.79-15.20 ms per config-4 batch against 12.36-12.49
-// padded and 12.42-12.52 before (scripts/descrip_ab.py, NVIDIA H100 80GB
-// HBM3, 700 W).
-constexpr int kHistPad = 384;
+// Blocks that share an SM. The launcher sets the kernel's shared-memory
+// carveout (``set_carveout``) to the least that holds this many blocks, so
+// L1 keeps the rest for the window reads. Left to the driver, the kernel's
+// 48 registers and 45,092 B let a fifth block in and leave L1 about 28 KB:
+// 14.79-15.20 ms per config-4 batch against 12.42-12.52 with 4 blocks
+// (scripts/descrip_ab.py, NVIDIA H100 80GB HBM3, 700 W).
+constexpr int kBlocksPerSm = 4;
 
 struct Params {
   float ux, uy, uz;              // voxel spacing (mm)
@@ -379,7 +378,7 @@ __global__ void __launch_bounds__(kThreads) descrip_window_kernel(
     const float2* __restrict__ range, float* __restrict__ out) {
   __shared__ int ihist[kWarps * kHist];   // this pass's fixed-point sums
   __shared__ int fine[kWarps / 2 * kHist];  // its small voxels' sums
-  __shared__ float hist[kHist + kHistPad];
+  __shared__ float hist[kHist];
   __shared__ float s_vinv[kFaces * 9];
   __shared__ int s_vert[kFaces * 3];
   __shared__ int l_off[kThreads + 1];   // a round's lines: span offsets,
@@ -575,7 +574,48 @@ __global__ void merge_slabs_kernel(const float* __restrict__ part, int slabs,
   }
 }
 
+// Sets descrip_window_kernel's preferred shared-memory carveout on the
+// current device to the least share of the SM's shared memory that holds
+// kBlocksPerSm blocks (the driver rounds it up to a capacity the SM has),
+// once a device. Returns the blocks an SM then holds, as the occupancy
+// calculator gives them, or a negative CUDA error.
+int set_carveout() {
+  constexpr int kMaxDevices = 64;
+  static int blocks[kMaxDevices];
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return -static_cast<int>(err);
+  if (dev < kMaxDevices && blocks[dev] > 0) return blocks[dev];
+  cudaFuncAttributes attr;
+  int sm_bytes = 0, reserved = 0, n = 0;
+  err = cudaFuncGetAttributes(&attr, descrip_window_kernel);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(
+        &sm_bytes, cudaDevAttrMaxSharedMemoryPerMultiprocessor, dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(
+        &reserved, cudaDevAttrReservedSharedMemoryPerBlock, dev);
+  if (err != cudaSuccess) return -static_cast<int>(err);
+  const long long need = static_cast<long long>(kBlocksPerSm) *
+                         (attr.sharedSizeBytes + reserved);
+  const int percent =
+      static_cast<int>(min(100LL, (100 * need + sm_bytes - 1) / sm_bytes));
+  err = cudaFuncSetAttribute(descrip_window_kernel,
+                             cudaFuncAttributePreferredSharedMemoryCarveout,
+                             percent);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &n, descrip_window_kernel, kThreads, 0);
+  if (err != cudaSuccess) return -static_cast<int>(err);
+  if (dev < kMaxDevices) blocks[dev] = n;
+  return n;
+}
+
 }  // namespace
+
+// Blocks of the descriptor kernel that share an SM of the current device,
+// its carveout set (kBlocksPerSm when it holds), or a negative CUDA error.
+extern "C" int sift3d_descrip_blocks_per_sm() { return set_carveout(); }
 
 // Raw (unnormalized) descriptors for `num_rows` keypoints of one level
 // bucket. level (nb, nz, ny, nx) f32; vol (num_rows,) i32 volume of each
@@ -624,6 +664,8 @@ extern "C" int sift3d_descrip_window(
   tile_range_kernel<<<static_cast<unsigned>((tiles + kWarps - 1) / kWarps),
                       kThreads, 0, s>>>(level, nz, ny, nx, tz, ty, tx, tiles,
                                         rg);
+  const int per_sm = set_carveout();
+  if (per_sm < 0) return -per_sm;
   float* dst = slabs > 1 ? scratch : out;
   const dim3 grid(count, slabs);
   descrip_window_kernel<<<grid, kThreads, 0, s>>>(

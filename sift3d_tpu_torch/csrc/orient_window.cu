@@ -53,10 +53,11 @@
 //     FMAs fma(gi gj, w, s) / fma(gi, w, s): one rounding per term instead
 //     of three (within 1e-5 of the plain version's row maximum).
 //
-//   - A level whose table would be too large to build and keep (an
-//     extent above 511, which the 10-bit packing cannot hold, or more than
-//     ops/cuda_orient.BOX_WALK_ENTRIES offsets in its box: the raw-image
-//     path's windows on volumes past 512 a side) has no table: each row
+//   - A level whose table the 10-bit packing cannot hold (an extent above
+//     511) or whose table would be read from device memory rather than the
+//     caches (more than ops/cuda_orient.BOX_WALK_ENTRIES offsets in its
+//     box: the raw-image path's windows from octave 4 on, where this walk
+//     is faster) has no table: each row
 //     walks its core box cut to |d| <= R, 32 voxels apart per lane in the
 //     same interleaved chunks, and forms |v|^2, the sphere test and the
 //     weight per voxel with the plain version's operations on the card

@@ -24,22 +24,20 @@ gradient w gi. Rows at or past ``count`` are zero.
   stacked (B*K, wz, wy, wx) copy of the windows first; the kernel does not.
 - The kernel walks, per level, the list of window offsets inside the
   sphere with their weights (``offset_table``), built per level geometry
-  with the plain version's own operations (a z-slab of the offset box at a
-  time), so that masks and weights are the plain version's bit for bit; a
-  row's list is split over ``warps_per_row`` warps. Tables are cached per
-  geometry up to ``TABLE_CACHE_BYTES``, least recently used first out: the
-  raw-image path's windows span up to a whole 256^3 volume, and its
-  octave-5 tables there would hold 51-127 M entries (0.8-1.9 GiB) a level
-  by that geometry (``tests/test_torch_kernels.py`` runs the kernel on
-  tables of 0.6-1.2 GiB, past the cache).
+  with the plain version's own operations, so that masks and weights are
+  the plain version's bit for bit; a row's list is split over
+  ``warps_per_row`` warps. Tables are cached per geometry up to
+  ``TABLE_CACHE_BYTES``, least recently used first out.
 - A level whose table would hold an extent past ``MAX_EXTENT`` (the 10-bit
   packing) or more than ``BOX_WALK_ENTRIES`` offsets in its box has no
   table (``box_walk``): its rows walk their core boxes and the kernel forms
   the mask and the weights per voxel by the plain version's operations.
-  The raw-image path meets such levels on volumes past 512 voxels a side
-  (a 600 x 512 x 512 volume's levels (6, 1) and (6, 2) have extents
-  (581, 509, 509) and (597, 509, 509)): a table there would hold up to
-  1.2 G entries (20 GB) and its build would peak near twice that.
+  The raw-image path's windows meet such levels from octave 4 on (they
+  span up to a whole volume): there a table is a 16-byte load per voxel
+  from device memory, and the walk is faster; below, a table held in the
+  caches is (``scripts/orient_walk_ab.py``). A 600 x 512 x 512 volume's
+  levels (6, 1) and (6, 2) have extents (581, 509, 509) and (597, 509,
+  509), past the packing: their tables would hold up to 1.2 G entries.
 - The float64 sums keep the keypoint rows exact (an fp32 sum can flip the
   0.90 eigenvalue-ratio or the corner test); on the H100 they set the
   function's bound (``orient_work`` counts it), while the kernel's time
@@ -69,18 +67,17 @@ _CHUNK_VOXELS = 1 << 22
 MAX_LEVELS = 32
 WARPS = 8
 MAX_EXTENT = 511
-# Offset-box candidates per z-slab while a table is built, and the bytes
-# of tables kept between calls. The slabs bound the build's temporaries:
-# at MAX_EXTENT with the whole box inside the sphere a build peaks at
-# 35.3 GB a slab at a time and runs out of the card's 80 GB in one pass;
-# with the sphere inscribed, 17.9 GB against 53.7 GB
-# (``scripts/orient_table_memory.py``, NVIDIA H100 80GB HBM3, 700 W).
-TABLE_SLAB = 1 << 24
+# Bytes of tables kept between calls.
 TABLE_CACHE_BYTES = 1 << 30
 # Offsets in a table's box above which a level has no table and its rows
-# walk their boxes (``box_walk``): such a table takes up to 2 GiB and its
-# build twice that, and it would not be kept between calls.
-BOX_WALK_ENTRIES = 1 << 27
+# walk their boxes (``box_walk``). Each raw 256^3 level alone, kernel ms
+# by table and by box walk: box 6.3 M offsets (3.2 M entries) 8.60 / 8.59,
+# 12.6 M 15.58 / 5.69, 49.4 M 49.88 / 25.72; at the pyramid levels' 1,331-
+# 15,625 offsets the tables halve a 256^3 registration's and a config-4
+# batch's kernel time (``scripts/orient_walk_ab.py``, NVIDIA H100 80GB
+# HBM3, 700 W). Below it a table holds at most 134 MB and is built in one
+# pass.
+BOX_WALK_ENTRIES = 1 << 23
 # Table entries a warp should walk at most: a row's list is split over
 # more warps (up to WARPS) until it does.
 ENTRIES_PER_WARP = 512
@@ -219,9 +216,8 @@ def offset_table(shape, radii, cores, units, sigma: float, rad: float,
     order: the level offset (dz ny + dy) nx + dx, the packed offset
     (``unpack``) and the weight w as a float64's two 32-bit words. |v|^2,
     the mask and w are formed by the plain version's operations on
-    ``device``, so they are its values bit for bit; the box is taken
-    ``TABLE_SLAB`` candidates of whole z-planes at a time. Raises when an
-    extent exceeds MAX_EXTENT or a level offset would not fit in int32."""
+    ``device``, so they are its values bit for bit. Raises when an extent
+    exceeds MAX_EXTENT or a level offset would not fit in int32."""
     g = _constants(units, sigma, rad)
     ext = table_extents(radii, cores)
     if max(ext) > MAX_EXTENT:
@@ -232,24 +228,19 @@ def offset_table(shape, radii, cores, units, sigma: float, rad: float,
         raise ValueError(f"orient_window: level offsets of extents {ext} in "
                          f"a {tuple(shape)} level exceed int32")
     ez, ey, ex = ext
+    dz = torch.arange(-ez, ez + 1, device=device)[:, None, None]
     dy = torch.arange(-ey, ey + 1, device=device)[None, :, None]
     dx = torch.arange(-ex, ex + 1, device=device)[None, None, :]
-    planes = max(1, TABLE_SLAB // ((2 * ey + 1) * (2 * ex + 1)))
-    parts = []
-    for z0 in range(-ez, ez + 1, planes):
-        dz = torch.arange(z0, min(ez + 1, z0 + planes),
-                          device=device)[:, None, None]
-        sq = _sq(dz, dy, dx, g)
-        mask = sq <= g["rad2"]
-        w = _weight(sq, g)[mask].to(F64)
-        iz, iy, ix = torch.nonzero(mask, as_tuple=True)
-        del sq, mask
-        pz, py, px = iz + z0, iy - ey, ix - ex
-        off = (pz * ny + py) * nx + px
-        parts.append(torch.cat(
-            [torch.stack([off, _pack(pz, py, px)], 1).to(torch.int32),
-             w.view(torch.int32).reshape(-1, 2)], 1))
-    return torch.cat(parts).contiguous()
+    sq = _sq(dz, dy, dx, g)
+    mask = sq <= g["rad2"]
+    w = _weight(sq, g)[mask].to(F64)
+    iz, iy, ix = torch.nonzero(mask, as_tuple=True)
+    del sq, mask
+    pz, py, px = iz - ez, iy - ey, ix - ex
+    off = (pz * ny + py) * nx + px
+    return torch.cat(
+        [torch.stack([off, _pack(pz, py, px)], 1).to(torch.int32),
+         w.view(torch.int32).reshape(-1, 2)], 1).contiguous()
 
 
 def warps_per_row(entries: int) -> int:

@@ -259,6 +259,19 @@ def _tables(device):
     return t
 
 
+def blocks_per_sm() -> int:
+    """Blocks of the kernel that share an SM of the current card once the
+    launcher has set its shared-memory carveout (``kBlocksPerSm``, 4, in
+    ``csrc/descrip_window.cu``; more blocks leave L1 too small for the
+    window reads)."""
+    fn = _build.load("descrip_window").sift3d_descrip_blocks_per_sm
+    fn.restype = ctypes.c_int
+    n = fn()
+    if n < 0:
+        _build.check(-n, "descrip_window carveout")
+    return n
+
+
 def _kernel_fn():
     fn = _build.load("descrip_window").sift3d_descrip_window
     if fn.argtypes is None:

@@ -438,12 +438,14 @@ def test_orient_window_kernel_wide_extents(cuda, shape, units, sd, wide):
 
 def test_orient_window_kernel_tables_past_the_cache(cuda, monkeypatch):
     """Kernel 3 on a 256^3 level with offset tables of 0.6-1.2 GiB (the
-    sizes the raw-image path's windows reach at octaves 4-5): a table
-    larger than TABLE_CACHE_BYTES is built for its call and not kept; of
-    two that do not fit together the older is evicted, and built again
-    when it is met again. Each call against the plain version."""
+    raw-image path's octave-5 windows, which walk their boxes unless
+    BOX_WALK_ENTRIES is raised as here): a table larger than
+    TABLE_CACHE_BYTES is built for its call and not kept; of two that do
+    not fit together the older is evicted, and built again when it is met
+    again. Each call against the plain version."""
     monkeypatch.setattr(cuda_orient, "_statics", cuda_orient._TableCache(
         cuda_orient.TABLE_CACHE_BYTES))
+    monkeypatch.setattr(cuda_orient, "BOX_WALK_ENTRIES", 1 << 27)
     cache = cuda_orient._statics
     shape, units = (256,) * 3, (1.0, 1.0, 1.0)
     gen = torch.Generator(device=cuda).manual_seed(13)
@@ -603,6 +605,13 @@ def test_descrip_window_kernel_core_past_1024(cuda):
           f"largest bin {rel}, of the descriptors {dev:.3e}")
     assert dev <= 2e-3
     assert max(rel) <= 1e-4
+
+
+def test_descrip_window_kernel_four_blocks_an_sm(cuda):
+    """The launcher sets the kernel's shared-memory carveout so that 4
+    blocks share an SM, not the 5 its registers and shared arrays allow
+    (a fifth leaves L1 too small for the window reads)."""
+    assert cuda_window.blocks_per_sm() == 4
 
 
 def test_orient_window_kernel_every_voxel_a_row(cuda):

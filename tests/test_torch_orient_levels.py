@@ -13,6 +13,8 @@ the plain version's mask, with its weights bit for bit.
 ``tests/test_torch_kernels.py`` holds the kernel itself on the card.
 """
 
+import math
+
 import numpy as np
 import pytest
 import torch
@@ -344,16 +346,6 @@ def test_offset_table_past_127():
     assert tab.shape[0] == int(inside.sum())
 
 
-def test_offset_table_slabs_equal_one_pass(monkeypatch):
-    """Building the table a few z-planes at a time gives the same table."""
-    units, sd, shape = (1.0, 1.3, 0.8), 1.6, (30, 32, 28)
-    sigma, rad, radii, cores = tori.level_geometry(sd, units, shape)
-    whole = offset_table(shape, radii, cores, units, sigma, rad, "cpu")
-    monkeypatch.setattr(cuda_orient, "TABLE_SLAB", 50)
-    assert torch.equal(offset_table(shape, radii, cores, units, sigma, rad,
-                                    "cpu"), whole)
-
-
 @pytest.mark.parametrize("radii,cores,shape", [
     ((600, 3, 3), (600, 5, 5), (610, 7, 7)),            # extent past 511
     ((500, 500, 500), (990, 990, 4990), (1000, 1000, 5000)),  # past int32
@@ -423,12 +415,24 @@ def test_f1_geometry_past_the_old_limits():
     g = _raw_geometry((1100, 512, 512))
     assert max(c[0] for _, _, c in g.values()) == 1098
     assert g[(4, 2)][2] == (1098, 510, 510)
-    # At 512^3 nothing passes MAX_EXTENT, but the largest boxes (from level
-    # (5, 1), 583^3 offsets) pass BOX_WALK_ENTRIES.
+    # At 512^3 nothing passes MAX_EXTENT.
     g = _raw_geometry((512, 512, 512))
     assert max(max(e) for e, _, _ in g.values()) == 509
-    assert [lv for lv, (_, walk, _) in g.items() if walk] == \
-        [(5, 1), (5, 2), (6, 0), (6, 1), (6, 2)]
+
+
+@pytest.mark.parametrize("shape", [(256, 256, 256), (512, 512, 512)])
+def test_raw_levels_walk_boxes_from_octave_4(shape):
+    """The raw-image path's levels from octave 4 on (table boxes of 12.6 M
+    offsets and more) pass BOX_WALK_ENTRIES and walk their boxes, where the
+    table walk was slower; octave 3's largest (6.3 M offsets, where the two
+    walks took the same time) and every smaller one keep their tables."""
+    g = _raw_geometry(shape)
+    for (o, s), (ext, walk, _) in g.items():
+        box = math.prod(2 * e + 1 for e in ext)
+        assert walk == (o >= 4), ((o, s), ext)
+        assert walk == (box > cuda_orient.BOX_WALK_ENTRIES)
+    assert max(math.prod(2 * e + 1 for e in ext)
+               for (o, _), (ext, _, _) in g.items() if o < 4) == 185 ** 3
 
 
 def _walk_box(shape, zyx, radii, cores, g, warps=8):
