@@ -70,7 +70,28 @@ kernel 1's shared-memory carveout holds 4 blocks an SM, then:
    orientation, outside counted near-threshold voxels; ``register_tps``
    on the 256^3 pair (against a numpy fit on the same inliers, and a
    deep-interior probe grid against the shift), the TPS warp,
-   ``regSift3D --type tps`` and ``denseSift3D``.
+   ``regSift3D --type tps`` and ``denseSift3D``;
+9. drives groupwise registration at config-5 size: (a) 256 copies of the
+   first config-4 source volume that phase 4 registers (pair 0 unless it
+   failed) rolled by shifts drawn in [-4, 4] voxels an axis (volume 0
+   unshifted), detected and described by ``batch_detect_describe`` in 4
+   batches of 64 with the counters set to 0 just before and read just
+   after (kernel 3 exactly 4 launches, kernel 1 once per non-empty level
+   bucket of each batch, no ``kp_overflow``), then
+   ``register.groupwise.register_groupwise`` over the 510 star + loop
+   edges of ``benches.data.make_fleet``: ``ok`` and every edge ok,
+   ``A[0] = I``, every ``A[i]`` within 5e-2 / 5 voxels of its shift, and
+   within 1e-9 of its largest |A| of a float64 numpy solve built on the
+   host from the card's matches and inlier masks; kernels 3 and 1 on the
+   first batch against plain; RANSAC over the edges at several chunk
+   sizes (equal bit for bit); (b) ``make_fleet(256)``'s correspondences
+   through ``utils.checkpoint.GroupwiseCheckpoint``, preempted after 200
+   edges and resumed, then ``groupwise_solve`` with ``num_iter=60``
+   within 5e-2 / 5 of the ground truth. ``utils.trace.StageTimer`` times
+   each stage (detection per batch, matching, RANSAC, solve, the whole
+   call), its records go through ``set_log_fn`` and ``jsonl_writer`` to
+   ``build/fleet_trace.jsonl`` and are printed with the peak device
+   memory and the launch counts.
 
 Prints the card's name and power limit, a ``{"kernels": [...]}`` line and,
 last, ``{"ok": true, "device": {...}}``. Exits non-zero, with no result,
@@ -110,9 +131,6 @@ BATCH_PAIRS = 64           # bench.py's config-4 batch
 BATCH_SHAPE = (64, 64, 64)
 BATCH_CAPS = dict(max_kp_per_level=192, max_kp_per_octave=(192, 64, 64, 32))
 BATCH_CHECK_ROWS = 512     # kernel-1 rows of the batched bucket check
-HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
-FP32_OPS_PER_S = 67e12     # H100 SXM fp32 outside the tensor cores
-FP64_OPS_PER_S = 34e12     # H100 SXM fp64 outside the tensor cores
 RAW_UNITS = (1.0, 1.0, 1.0)
 RAW_CHECK_ROWS = (3, 4)    # rows of each bucket checked: kernels 3 and 1
 RAW_DESC_BOUND = 0.2       # rawDescriptorTest (Sift3DTest.m:179-201)
@@ -145,6 +163,16 @@ TPS_REG = 1e-6             # register_tps's default bending-energy term
 TPS_PARAM_TOL = 1e-6
 TPS_CTRL_TOL = 1e-5
 TPS_PROBE_TOL = 1.5
+# Phase 9: the config-5 fleet (BASELINE.md config 5: 256 volumes, 510 star
+# + loop edges) as rolled copies of one config-4 source volume.
+FLEET_VOLUMES = 256
+FLEET_CHUNK = 64           # volumes a batch_detect_describe call
+FLEET_SHIFT = 4            # shifts drawn in [-4, 4] voxels an axis
+FLEET_SEED = 5
+FLEET_LIN_TOL, FLEET_T_TOL = 5e-2, 5.0   # the reference's contract
+FLEET_SOLVE_RTOL = 1e-9    # card vs numpy solve, of the largest |A|
+FLEET_KILL_AFTER = 200     # simulated preemption (bench_groupwise.py:85)
+FLEET_SWEEP = (16, 64, 128, 256, 510)    # RANSAC chunks, edges
 CARD = [""]                # the card's name and power limit, once read
 
 
@@ -176,8 +204,13 @@ def cuda_ms(fn, reps: int) -> float:
 
 def bound_ms(nbytes: float, ops: float, ops64: float = 0.0
              ) -> tuple[float, str]:
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = (ops / FP32_OPS_PER_S + ops64 / FP64_OPS_PER_S) * 1e3
+    """The least time of the work on the card: bytes over its memory rate
+    or fp32 and fp64 operations over their peaks (``utils/roofline.py``'s
+    H100 SXM data-sheet rates), whichever is larger."""
+    from sift3d_tpu_torch.utils.roofline import H100_SXM as peaks
+    t_bytes = nbytes / (peaks.hbm_gbps * 1e9) * 1e3
+    t_ops = (ops / (peaks.fp32_tflops * 1e12) +
+             ops64 / (peaks.fp64_tflops * 1e12)) * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -518,23 +551,35 @@ def _trace_us(fn, names, reps: int) -> list[float]:
             any(n in e.get("name", "") for n in names)]
 
 
-def kernel_alone_ms(fn, name, reps: int) -> float:
+def kernel_alone_ms(fn, name, reps: int, tries: int = 4) -> float | None:
     """Device time of the kernels whose name holds ``name`` (or one of a
     tuple of names), per call of ``fn``, from the profiler's trace of
-    ``reps`` calls. A trace can lack kernel records (on the H100 two
-    readings came out at 2/3 and 1/10 of the same call's time by events,
-    as if one record of 3 and 9 of 10 were missing), and a lost record
-    only lowers the count: the trace is taken twice, a third time when
-    the two counts differ, and the fullest is used."""
+    ``reps`` calls; None when no trace held a record of them. A trace can
+    lack kernel records (on the H100 readings came out at 2/3 and 1/10 of
+    the same call's time by events, as if one record of 3 and 9 of 10
+    were missing, and one trace of a fleet batch held none of its 5), and
+    a lost record only lowers the count: traces are taken until two hold
+    the same number of records, at most ``tries``, and the fullest is
+    used. The callers' times by events do not depend on the profiler."""
     names = (name,) if isinstance(name, str) else tuple(name)
     fn()
     torch.cuda.synchronize()
-    traces = [_trace_us(fn, names, reps) for _ in range(2)]
-    if len(traces[0]) != len(traces[1]):
+    traces = [_trace_us(fn, names, reps)]
+    while len(traces) < tries:
         traces.append(_trace_us(fn, names, reps))
+        if any(len(t) == len(traces[-1]) > 0 for t in traces[:-1]):
+            break
     us = max(traces, key=len)
-    assert us, f"no {name} kernel in the profile"
+    if not us:
+        log(f"no {names} kernel record in {len(traces)} profiler traces: "
+            f"the time alone is not measured")
+        return None
     return sum(us) / 1e3 / reps
+
+
+def fmt_ms(t: float | None, prec: int = 4) -> str:
+    """``t`` in ms at ``prec`` decimals, or "not measured" for None."""
+    return "not measured" if t is None else f"{t:.{prec}f} ms"
 
 
 def work_sum(fn, args) -> list[float]:
@@ -1036,6 +1081,303 @@ def tps_phase(src, ref, dev) -> dict:
                 warp_interior_mean_err=warp_err, cli=t_cli)
 
 
+def concat_descriptors(sets):
+    """One batched Descriptors set of the volumes of several, padded to
+    the largest capacity."""
+    from sift3d_tpu_torch.features.descriptor import Descriptors
+    K = max(d.capacity for d in sets)
+
+    def cat(f):
+        parts = [getattr(d, f) for d in sets]
+        out = parts[0].new_zeros((sum(p.shape[0] for p in parts), K) +
+                                 parts[0].shape[2:])
+        b = 0
+        for p in parts:
+            out[b:b + p.shape[0], :p.shape[1]] = p
+            b += p.shape[0]
+        return out
+    return Descriptors(xyz=cat("xyz"), sd=cat("sd"), vec=cat("vec"),
+                       count=torch.cat([d.count for d in sets]))
+
+
+def groupwise_numpy(edges, src, ref, cnt, inlier, n_vol: int,
+                    ridge: float = 1e-9) -> np.ndarray:
+    """(n_vol, 3, 4) affines minimizing sum |A_i [p; 1] - A_j [q; 1]|^2 over
+    the inlier pairs of each edge (i, j), A_0 = I, built on the host from
+    the objective's normal equations (one 4-row block per volume past 0,
+    the three output rows as three right-hand sides) about the valid
+    points' centroid, with ``ridge`` on the diagonal, and solved by numpy
+    in float64."""
+    M = src.shape[1]
+    valid = np.arange(M) < cnt[:, None]
+    c = (src[valid].sum(0) + ref[valid].sum(0)) / (2.0 * valid.sum())
+    n = 4 * (n_vol - 1)
+    H = np.zeros((n, n))
+    rhs = np.zeros((n, 3))
+    for e, (i, j) in enumerate(edges):
+        m = inlier[e]
+        hp = np.concatenate([src[e][m] - c, np.ones((m.sum(), 1))], 1)
+        hq = np.concatenate([ref[e][m] - c, np.ones((m.sum(), 1))], 1)
+        a, b = 4 * (i - 1), 4 * (j - 1)
+        if i > 0:
+            H[a:a + 4, a:a + 4] += hp.T @ hp
+        if j > 0:
+            H[b:b + 4, b:b + 4] += hq.T @ hq
+        if i > 0 and j > 0:
+            H[a:a + 4, b:b + 4] -= hp.T @ hq
+            H[b:b + 4, a:a + 4] -= hq.T @ hp
+        elif j > 0:                     # A_i = I: its rows are p's coords
+            rhs[b:b + 4] += hq.T @ hp[:, :3]
+        elif i > 0:
+            rhs[a:a + 4] += hp.T @ hq[:, :3]
+    X = np.linalg.solve(H + ridge * np.eye(n), rhs)
+    A = np.zeros((n_vol, 3, 4))
+    A[0] = np.eye(3, 4)
+    for v in range(1, n_vol):
+        L, t = X[4 * (v - 1):4 * v - 1].T, X[4 * v - 1]
+        A[v, :, :3] = L
+        A[v, :, 3] = t + c - L @ c
+    return A
+
+
+def fleet_deviation(A, want) -> tuple[float, float]:
+    """Largest |linear - want| and |translation - want| over the fleet."""
+    A, want = np.asarray(A), np.asarray(want)
+    return (float(np.abs(A[:, :, :3] - want[:, :, :3]).max()),
+            float(np.abs(A[:, :, 3] - want[:, :, 3]).max()))
+
+
+def fleet_phase(base, dev, plan4, params4, k1_times, k3_times) -> dict:
+    """Phase 9: groupwise registration of the config-5 fleet on the card.
+
+    (a) 256 rolled copies of ``base`` (volume 0 unshifted), detected and
+    described in 4 batches of 64, the 510 star + loop edges through
+    ``register_groupwise``, held to the shifts and to a float64 numpy
+    solve from the card's matches and inlier masks; (b) the synthetic
+    config-5 correspondences of ``benches.data.make_fleet`` through a
+    checkpoint store with a simulated preemption, solved by
+    ``groupwise_solve``, held to their ground truth. The profile of one
+    ``register_groupwise`` call comes last."""
+    from benches.data import make_fleet
+    from scripts.profile_register import profile_call
+    from sift3d_tpu_torch.config import MatchParams, RansacParams
+    from sift3d_tpu_torch.features import detect as detect_mod
+    from sift3d_tpu_torch.features.orientation import levels_args
+    from sift3d_tpu_torch.ops import cuda_match
+    from sift3d_tpu_torch.parallel.pipeline import batch_detect_describe
+    from sift3d_tpu_torch.register import groupwise as gw
+    from sift3d_tpu_torch.utils.checkpoint import GroupwiseCheckpoint
+    from sift3d_tpu_torch.utils.trace import (StageTimer, jsonl_writer,
+                                              set_log_fn)
+    card = CARD[0]
+    units = (1.0, 1.0, 1.0)
+    rng = np.random.default_rng(FLEET_SEED)
+    shifts = np.concatenate([np.zeros((1, 3), np.int64), rng.integers(
+        -FLEET_SHIFT, FLEET_SHIFT + 1, (FLEET_VOLUMES - 1, 3))])
+    vols = np.stack([np.roll(base, s, axis=(0, 1, 2)) for s in shifts])
+    edges, src5, ref5, cnt5, want5 = make_fleet(FLEET_VOLUMES)
+    want = np.zeros((FLEET_VOLUMES, 3, 4))
+    want[:, :, :3] = np.eye(3)
+    want[:, :, 3] = -shifts[:, ::-1]            # zyx shifts, xyz columns
+    build = os.path.join(ROOT, "build")
+    os.makedirs(build, exist_ok=True)
+    log_path = os.path.join(build, "fleet_trace.jsonl")
+    if os.path.exists(log_path):
+        os.remove(log_path)
+    set_log_fn(jsonl_writer(log_path))
+    timer = StageTimer("fleet")
+    try:
+        # (a) Detection, launches counted.
+        zero_launch_counts()
+        cuda_match.reduce_one_way.launches = 0
+        sets, expect_k1, overflow = [], 0, 0
+        for c in range(0, FLEET_VOLUMES, FLEET_CHUNK):
+            with timer.stage(f"detect_{c // FLEET_CHUNK}") as out:
+                kp, desc, ov = batch_detect_describe(
+                    vols[c:c + FLEET_CHUNK], plan4, params4, dev)
+                out["set"] = (kp, desc, ov)
+            sets.append(desc)
+            expect_k1 += count_buckets(kp, {})[1]
+            overflow += int(ov.sum())
+        det_counts = launch_counts()
+        n_chunks = FLEET_VOLUMES // FLEET_CHUNK
+        kp_counts = torch.cat([d.count for d in sets]).cpu().numpy()
+        print(f"fleet detection, {FLEET_VOLUMES} volumes in {n_chunks} "
+              f"batches: launches orient_window {det_counts[1]} "
+              f"descrip_window {det_counts[0]} (non-empty buckets "
+              f"{expect_k1}), kp_overflow on {overflow} volumes, keypoints "
+              f"per volume {kp_counts.min()}-{kp_counts.max()}")
+        assert det_counts[1] == n_chunks, det_counts
+        assert det_counts[0] == expect_k1, (det_counts, expect_k1)
+        assert overflow == 0, f"kp_overflow on {overflow} fleet volumes"
+        desc = concat_descriptors(sets)
+
+        # Kernels 3 and 1 on the first batch against plain, and their times.
+        gpyr, ext = extrema_of(vols[:FLEET_CHUNK], plan4, params4, dev)
+        k3_call = [levels_args(detect_mod.keypoint_levels(gpyr, ext, plan4))]
+        k3_check = check_orient_levels(k3_call, params4.corner_thresh,
+                                       f"fleet batch, {FLEET_CHUNK} volumes")
+        kp_flat, vol_flat = detect_mod.orient_levels(gpyr, ext, plan4,
+                                                     params4)
+        k1_args = level_args(gpyr, plan4, kp_flat, vol_flat)
+        fullest = max(k1_args, key=lambda b: b[1][3])
+        step = max(1, fullest[1][3] // BATCH_CHECK_ROWS)
+        k1_check = [b for b in level_args(gpyr, plan4, kp_flat, vol_flat,
+                                          step=step) if b[0] == fullest[0]]
+        k1_worst = check_descrip_window(
+            k1_check, f"fleet batch, one row in {step} of its fullest bucket")
+        k1_t = k1_times(k1_args, 3)
+        k3_t = k3_times(k3_call, 5)
+        del gpyr, ext, kp_flat, vol_flat, k1_args, k1_check
+        print(f"fleet batch kernels: descrip_window {k1_t['launches']} "
+              f"launches {k1_t['ms']:.4f} ms, plain {k1_t['plain_ms']:.1f} "
+              f"ms, bound {k1_t['bound_ms']:.4f} ms ({k1_t['bound_by']}); "
+              f"orient_window 1 launch {k3_t['ms']:.4f} ms by events, alone "
+              f"{fmt_ms(k3_t['alone_ms'])}, plain {k3_t['plain_ms']:.3f} ms, "
+              f"bound {k3_t['bound_ms']:.5f} ms ({k3_t['bound_by']}) [{card}]")
+
+        # The call, its stages, and the result against the shifts.
+        res = gw.register_groupwise(desc, edges, units)
+        torch.cuda.synchronize()
+        assert cuda_match.reduce_one_way.launches == 0
+        with timer.stage("match") as out:
+            src, ref, cnt = gw._match_edges(desc, edges, units, MatchParams())
+            out["m"] = (src, ref, cnt)
+        with timer.stage("ransac") as out:
+            n_in, inl = gw._ransac_edges(src, ref, cnt, RansacParams())
+            out["r"] = (n_in, inl)
+        with timer.stage("solve") as out:
+            A_st = gw._solve_inliers(edges, src, ref, cnt, inl,
+                                     FLEET_VOLUMES, 1e-9)
+            out["A"] = A_st
+        calls, As = [], []
+        torch.cuda.reset_peak_memory_stats()
+        base_mem = torch.cuda.memory_allocated()
+        for _ in range(3):
+            with timer.stage("register_groupwise") as out:
+                t0 = time.perf_counter()
+                r = gw.register_groupwise(desc, edges, units)
+                out["r"] = r
+            calls.append((time.perf_counter() - t0) * 1e3)
+            As.append(r.A)
+        peak = torch.cuda.max_memory_allocated() - base_mem
+        timer.report()
+    finally:
+        set_log_fn(None)
+    spread = max(float((a - res.A).abs().max()) for a in As)
+    A = res.A.cpu().numpy()
+    cnt_h, inl_h = cnt.cpu().numpy(), inl.cpu().numpy()
+    lin, trans = fleet_deviation(A, want)
+    A_np = groupwise_numpy(edges, src.cpu().numpy(), ref.cpu().numpy(),
+                           cnt_h, inl_h, FLEET_VOLUMES)
+    np_dev = float(np.abs(A - A_np).max() / np.abs(A_np).max())
+    with open(log_path) as f:
+        records = [json.loads(line) for line in f]
+    for rec in records:
+        if rec["kind"] == "stage":
+            print(f"fleet stage {rec['stage']}: {rec['seconds'] * 1e3:.3f} ms "
+                  f"[{card}]")
+    print(f"register_groupwise, {FLEET_VOLUMES} rolled copies of the "
+          f"config-4 source volume, {len(edges)} star + loop edges: ok "
+          f"{bool(res.ok)}, edges ok {int(res.edge_ok.sum())}, matches per "
+          f"edge {cnt_h.min()}-{cnt_h.max()}, inliers per edge "
+          f"{int(res.edge_inliers.min())}-{int(res.edge_inliers.max())}; max "
+          f"|A - shift| linear {lin:.3e} translation {trans:.3f} (contract "
+          f"{FLEET_LIN_TOL} / {FLEET_T_TOL}); vs a float64 numpy solve "
+          f"{np_dev:.3e} of max |A| (tolerance {FLEET_SOLVE_RTOL}); A over 3 "
+          f"more calls max |spread| {spread:.3e}; min of 3 {min(calls):.2f} "
+          f"ms (host clock, ending in a sync), peak device memory "
+          f"{peak / 2**20:.1f} MiB above the descriptors [{card}]")
+    assert bool(res.ok) and bool(res.edge_ok.all()), "fleet not ok"
+    assert np.array_equal(A[0], np.eye(3, 4)), A[0]
+    assert lin <= FLEET_LIN_TOL and trans <= FLEET_T_TOL, (lin, trans)
+    assert torch.equal(A_st, res.A) and torch.equal(n_in.int(),
+                                                    res.edge_inliers)
+    assert np.array_equal(inl_h.sum(1), res.edge_inliers.cpu().numpy())
+    assert np_dev <= FLEET_SOLVE_RTOL, np_dev
+
+    # RANSAC over the edges in chunks: equal bit for bit, time and memory.
+    sweep = []
+    for chunk in FLEET_SWEEP:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        m0 = torch.cuda.memory_allocated()
+        ms = []
+        for _ in range(2):
+            t0 = time.perf_counter()
+            out = gw._ransac_edges(src, ref, cnt, RansacParams(), chunk=chunk)
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+        assert torch.equal(out[0], n_in) and torch.equal(out[1], inl), chunk
+        sweep.append(dict(chunk=chunk, ms=min(ms),
+                          peak_bytes=torch.cuda.max_memory_allocated() - m0))
+    M = src.shape[1]
+    default_chunk = gw.edge_chunk(RansacParams(), M)
+    print(f"RANSAC over {len(edges)} edges of {M} rows by chunk (edges: min "
+          "of 2 ms, peak MiB): "
+          + ", ".join(f"{s['chunk']}: {s['ms']:.2f}, "
+                      f"{s['peak_bytes'] / 2**20:.0f}" for s in sweep)
+          + f"; all equal bit for bit; default chunk {default_chunk} "
+          f"[{card}]")
+
+    # (b) The config-5 correspondences through the checkpoint store.
+    params5 = RansacParams(num_iter=60)
+    with tempfile.TemporaryDirectory(dir=build) as tmp:
+        ckpt = GroupwiseCheckpoint(os.path.join(tmp, "gw"))
+
+        def run_matching(kill_after=None):
+            done = 0
+            for e, (i, j) in enumerate(edges):
+                if ckpt.has(i, j):
+                    continue
+                ckpt.put(i, j, src5[e], ref5[e], cnt5[e])
+                done += 1
+                if kill_after is not None and done >= kill_after:
+                    return False
+            return True
+        t0 = time.perf_counter()
+        assert not run_matching(kill_after=FLEET_KILL_AFTER)
+        assert len(ckpt.edges()) == FLEET_KILL_AFTER
+        assert run_matching()
+        src_c, ref_c, cnt_c = ckpt.gather([tuple(e) for e in edges])
+        ckpt_s = time.perf_counter() - t0
+    assert np.array_equal(src_c, src5) and np.array_equal(cnt_c, cnt5)
+    solve5 = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        res5 = gw.groupwise_solve(edges, src_c, ref_c, cnt_c, FLEET_VOLUMES,
+                                  params5, device=dev)
+        ok5 = bool(res5.ok)
+        solve5.append((time.perf_counter() - t0) * 1e3)
+    lin5, t5 = fleet_deviation(res5.A.cpu().numpy(), want5)
+    print(f"groupwise_solve, config-5 correspondences ({len(edges)} edges "
+          f"through the checkpoint store, preempted after "
+          f"{FLEET_KILL_AFTER} and resumed, {ckpt_s:.3f} s): ok {ok5}, max "
+          f"|A - truth| linear {lin5:.4f} translation {t5:.4f} (contract "
+          f"{FLEET_LIN_TOL} / {FLEET_T_TOL}); min of 3 {min(solve5):.2f} ms "
+          f"[{card}]")
+    assert ok5 and lin5 <= FLEET_LIN_TOL and t5 <= FLEET_T_TOL, (ok5, lin5, t5)
+
+    _, prof = profile_call(lambda: gw.register_groupwise(desc, edges, units))
+    print("register_groupwise profiled (host span / device busy ms): "
+          + ", ".join(f"{k} {v['host_ms']:.2f} / {v['device_busy_ms']:.2f}"
+                      for k, v in prof["stages"].items())
+          + f"; device busy {prof['device_busy_ms']:.2f} of "
+          f"{prof['wall_ms']:.2f} ms, idle share {prof['idle_share']:.3f} "
+          f"[{card}]")
+    return dict(counts=det_counts, expected_k1=expect_k1,
+                kp_per_volume=[int(kp_counts.min()), int(kp_counts.max())],
+                stages={r["stage"]: r["seconds"] for r in records
+                        if r["kind"] == "stage"},
+                register_ms=calls, peak_bytes=peak, profile=prof,
+                lin_dev=lin, t_dev=trans, numpy_rel_dev=np_dev,
+                run_spread=spread, sweep=sweep, default_chunk=default_chunk,
+                k1=dict(k1_t, max_abs_err=k1_worst),
+                k3=dict(k3_t, check=k3_check),
+                config5=dict(lin_dev=lin5, t_dev=t5, solve_ms=solve5,
+                             checkpoint_s=ckpt_s))
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         log("chip_smoke: no CUDA device available")
@@ -1286,7 +1628,7 @@ def main() -> int:
         print(f"orient_window per {label} ({t['launches']} launches, "
               f"{t['levels']} levels, {t['rows']} rows, "
               f"{t['active_voxels']} voxels counted): {t['ms']:.4f} ms by "
-              f"events, kernel alone {t['alone_ms']:.4f} ms, plain "
+              f"events, kernel alone {fmt_ms(t['alone_ms'])}, plain "
               f"{t['plain_ms']:.3f} ms, bound {t['bound_ms']:.5f} ms "
               f"({t['bound_by']}) [{card}]")
 
@@ -1545,15 +1887,17 @@ def main() -> int:
           f"{k3_raw['levels']} levels, {k3_raw['rows']} rows, "
           f"{k3_raw['active_voxels']} voxels counted, largest table "
           f"{k3_raw['rows_entries_max']} entries): {k3_raw['ms']:.3f} ms by "
-          f"events (tables included), kernel alone {k3_raw['alone_ms']:.3f} "
-          f"ms, plain {k3_raw['plain_ms']:.1f} ms, bound "
-          f"{k3_raw['bound_ms']:.5f} ms ({k3_raw['bound_by']}) [{card}]")
+          f"events (tables included), kernel alone "
+          f"{fmt_ms(k3_raw['alone_ms'], 3)}, plain "
+          f"{k3_raw['plain_ms']:.1f} ms, bound {k3_raw['bound_ms']:.5f} ms "
+          f"({k3_raw['bound_by']}) [{card}]")
     print(f"descrip_window raw {SIZE}^3 ({k1_raw['launches']} launches, "
           f"{k1_raw['rows']} rows, {min(k1_raw['blocks_per_launch'])}-"
           f"{max(k1_raw['blocks_per_launch'])} blocks a launch): "
           f"{k1_raw['ms']:.3f} ms by events, kernel alone "
-          f"{k1_raw['alone_ms']:.3f} ms, plain {k1_raw['plain_ms']:.1f} ms, "
-          f"bound {k1_raw['bound_ms']:.4f} ms ({k1_raw['bound_by']}) [{card}]")
+          f"{fmt_ms(k1_raw['alone_ms'], 3)}, plain "
+          f"{k1_raw['plain_ms']:.1f} ms, bound {k1_raw['bound_ms']:.4f} ms "
+          f"({k1_raw['bound_by']}) [{card}]")
 
     # 8. The sixth slice: kernels 3 and 1 past their old size limits (F1),
     # dense descriptors (config 3 at 512^3, the rotate variant), TPS
@@ -1563,6 +1907,18 @@ def main() -> int:
     rot = rotate_phase(dev, params.corner_thresh)
     tps = tps_phase(src, ref, dev)
     detail.update(f1=f1, dense=dense, rotate=rot, tps=tps)
+
+    # 9. The seventh slice: groupwise registration of the config-5 fleet,
+    # from the source volume of the first config-4 pair that phase 4
+    # registered within the contract (pair 0 unless it failed).
+    fleet_pair = next(b for b, (passed, _, _) in enumerate(seq) if passed)
+    print(f"fleet base: config-4 pair {fleet_pair}'s source volume")
+    t0 = time.perf_counter()
+    fleet = fleet_phase(src4[fleet_pair], dev, plan4, params4, k1_times,
+                        k3_times)
+    fleet_s = time.perf_counter() - t0
+    print(f"phase 9: {fleet_s:.1f} s")
+    detail.update(fleet=dict(fleet, base_pair=fleet_pair, phase_s=fleet_s))
 
     log("detail: " + json.dumps(detail))
 
@@ -1587,7 +1943,9 @@ def main() -> int:
             dense_512=dense["counts"][i], dense_rotate_128=rot["counts"][i],
             register_tps_256=tps["counts"][i],
             cli_reg_tps_256=tps["cli_counts"][i],
-            cli_dense_256=dense["cli"]["counts"][i])
+            cli_dense_256=dense["cli"]["counts"][i],
+            groupwise_fleet_256=fleet["counts"][i])
+    by_path["match_stream"]["groupwise_fleet_256"] = 0
     per_reg = "all launches of one 256^3 registration"
     k3_checks = (k3_check, k3_levels_check, k3_batch_check,
                  k3_batch_levels_check)
@@ -1616,7 +1974,12 @@ def main() -> int:
              f1_ms=f1["k1"]["ms"], f1_plain_ms=f1["k1"]["plain_ms"],
              f1_bound_ms=f1["k1"]["bound_ms"],
              f1_bound_by=f1["k1"]["bound_by"],
-             f1_max_abs_err=f1["k1"]["max_abs_err"]),
+             f1_max_abs_err=f1["k1"]["max_abs_err"],
+             fleet_ms=fleet["k1"]["ms"],
+             fleet_plain_ms=fleet["k1"]["plain_ms"],
+             fleet_bound_ms=fleet["k1"]["bound_ms"],
+             fleet_bound_by=fleet["k1"]["bound_by"],
+             fleet_max_abs_err=fleet["k1"]["max_abs_err"]),
         dict(name="match_stream", route="cuda",
              source="sift3d_tpu_torch/csrc/match_stream.cu",
              replaces="sift3d_tpu/ops/pallas_match.py:63",
@@ -1665,7 +2028,13 @@ def main() -> int:
              rotate_plain_ms=rot["k3"]["plain_ms"],
              rotate_bound_ms=rot["k3"]["bound_ms"],
              rotate_bound_by=rot["k3"]["bound_by"],
-             rotate_max_rel_err=rot["k3"]["max_rel_err"]),
+             rotate_max_rel_err=rot["k3"]["max_rel_err"],
+             fleet_ms=fleet["k3"]["ms"],
+             fleet_alone_ms=fleet["k3"]["alone_ms"],
+             fleet_plain_ms=fleet["k3"]["plain_ms"],
+             fleet_bound_ms=fleet["k3"]["bound_ms"],
+             fleet_bound_by=fleet["k3"]["bound_by"],
+             fleet_max_rel_err=fleet["k3"]["check"]["max_rel_err"]),
     ]
     print(card)
     print(json.dumps({"kernels": kernels}))

@@ -87,8 +87,9 @@ def main() -> int:
                 "orient_levels_kernel", args.reps))
     print(card)
     for k, per in times.items():
-        print(f"{k}: " + ", ".join(f"{s}: {t[0]:.4f} / {t[1]:.4f} ms"
-                                   for s, t in per.items()))
+        print(f"{k}: " + ", ".join(
+            f"{s}: {cs.fmt_ms(t[0])} / {cs.fmt_ms(t[1])}"
+            for s, t in per.items()))
     print(json.dumps({"card": card, "max_rel_err": worst,
                       "kernel_alone_ms": {k: {str(s): t for s, t in
                                               per.items()}

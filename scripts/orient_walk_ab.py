@@ -180,8 +180,8 @@ def main() -> int:
         for what, per in (("kernel alone", d["alone_ms"]),
                           ("by events", d["events_ms"])):
             print(f"{k}, {what}: " + ", ".join(
-                f"{s} " + " / ".join(f"{t:.4f}" for t in ts)
-                for s, ts in per.items()) + " ms")
+                f"{s} " + " / ".join(cs.fmt_ms(t) for t in ts)
+                for s, ts in per.items()))
         for lv in levels_out[k]:
             print(f"  level {lv['extents']} rows {lv['rows']} table "
                   f"{lv['table_entries']} of {lv['box_offsets']}: tables "

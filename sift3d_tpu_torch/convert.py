@@ -22,7 +22,7 @@ import numpy as np
 import torch
 
 from .config import MatchParams, RansacParams, SIFT3DParams
-from .dtypes import F64
+from .dtypes import F64, resolve_device
 from .features.descriptor import Descriptors
 from .features.keypoints import Keypoints
 
@@ -55,7 +55,8 @@ def params_from_dict(cls, d: dict):
 
 
 def _tensor(a, dtype, device):
-    return torch.as_tensor(np.array(a), device=device).to(dtype)
+    dev = resolve_device(device)
+    return torch.as_tensor(np.array(a), device=dev).to(dtype)
 
 
 def _count(count, device):

@@ -139,6 +139,26 @@ def codec():
     return pdicom
 
 
+@pytest.fixture(scope="session")
+def jax_codec_dir(tmp_path_factory):
+    return tmp_path_factory.mktemp("jax_dicom_build")
+
+
+@pytest.fixture()
+def jax_codec(jax_codec_dir, monkeypatch):
+    """The JAX codec, built into a directory of this test session.
+
+    Its own build runs ``g++ -o`` straight onto one library shared by every
+    process (``$TMPDIR/sift3d_native``): a test worker that loads it while
+    another is linking it reads a truncated file, stores the error and
+    raises on every later call. A private directory has no other writer.
+    """
+    monkeypatch.setattr(jdicom, "_BUILD", jax_codec_dir)
+    monkeypatch.setattr(jdicom, "_lib", None)
+    monkeypatch.setattr(jdicom, "_build_error", None)
+    return jdicom
+
+
 def test_dicom_codec_builds_its_own_library(codec):
     assert codec._BUILD != jdicom._BUILD
     assert "build/native" in str(codec._BUILD)
@@ -147,7 +167,7 @@ def test_dicom_codec_builds_its_own_library(codec):
 @pytest.mark.parametrize("writer,reader", [("port", "port"), ("jax", "port"),
                                            ("port", "jax")])
 @pytest.mark.parametrize("target", ["a.dcm", "series"])
-def test_dicom_round_trip(tmp_path, codec, writer, reader, target):
+def test_dicom_round_trip(tmp_path, codec, jax_codec, writer, reader, target):
     rng = np.random.default_rng(4)
     vol = rng.random((5, 6, 7)).astype(np.float32)
     path = str(tmp_path / target)

@@ -16,10 +16,14 @@ from sift3d_tpu_torch import RegSift3D, Sift3D
 from sift3d_tpu_torch.api import (assign_orientations, descriptors_from_rows,
                                   warp)
 from sift3d_tpu_torch.config import MatchParams, RansacParams, SIFT3DParams
-from sift3d_tpu_torch.convert import params_from_dict
+from sift3d_tpu_torch.convert import descriptors_from_numpy, params_from_dict
 from sift3d_tpu_torch.dtypes import resolve_device
 from sift3d_tpu_torch.ops import cuda_match, cuda_orient, cuda_window
 from sift3d_tpu_torch.parallel import pipeline as tpipe
+from sift3d_tpu_torch.register.groupwise import (groupwise_solve,
+                                                 register_groupwise)
+from sift3d_tpu_torch.utils.checkpoint import (load_descriptors,
+                                               load_keypoints)
 
 torch.set_num_threads(1)
 
@@ -36,7 +40,11 @@ def test_import_pulls_in_no_jax():
             "sift3d_tpu_torch.io.dicom, sift3d_tpu_torch.cli.kp, "
             "sift3d_tpu_torch.cli.reg, sift3d_tpu_torch.ops.interp, "
             "sift3d_tpu_torch.ops.draw, sift3d_tpu_torch.features.dense, "
-            "sift3d_tpu_torch.cli.dense, sift3d_tpu_torch.register.tps\n"
+            "sift3d_tpu_torch.cli.dense, sift3d_tpu_torch.register.tps, "
+            "sift3d_tpu_torch.register, sift3d_tpu_torch.register.groupwise, "
+            "sift3d_tpu_torch.utils, sift3d_tpu_torch.utils.trace, "
+            "sift3d_tpu_torch.utils.roofline, "
+            "sift3d_tpu_torch.utils.checkpoint\n"
             "bad = [m for m in sys.modules if m == 'jax' or "
             "m.startswith(('jax.', 'jaxlib', 'sift3d_tpu.')) or "
             "m == 'sift3d_tpu']\n"
@@ -64,7 +72,7 @@ def test_sources_name_no_jax(path):
             assert top not in ("jax", "jaxlib", "sift3d_tpu"), (path, name)
 
 
-def test_entry_points_refuse_cpu_fallback():
+def test_entry_points_refuse_cpu_fallback(tmp_path):
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present: the default device is valid")
     vol = np.zeros((16, 16, 16), np.float32)
@@ -88,7 +96,32 @@ def test_entry_points_refuse_cpu_fallback():
         tpipe.batch_register_pairs(np.zeros((1, 16, 16, 16)),
                                    np.zeros((1, 16, 16, 16)), None,
                                    SIFT3DParams())
+    edges = np.array([(0, 1)])
+    pts = np.zeros((1, 8, 3))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        groupwise_solve(edges, pts, pts, np.array([8]), 2)
+    desc = dict(xyz=np.zeros((2, 4, 3)), sd=np.zeros((2, 4)),
+                vec=np.zeros((2, 4, 768), np.float32), count=np.array([4, 4]))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        # Descriptors on the card cannot be made without one.
+        register_groupwise(descriptors_from_numpy(**desc, device="cuda"),
+                           edges, (1.0, 1.0, 1.0))
+    np.savez(tmp_path / "d.npz", xyz=np.zeros((1, 3)), sd=np.zeros(1),
+             vec=np.zeros((1, 768), np.float32))
+    np.savez(tmp_path / "k.npz", rows=np.zeros((1, 14)),
+             s=np.zeros(1, np.int32))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        load_descriptors(str(tmp_path / "d.npz"))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        load_keypoints(str(tmp_path / "k.npz"))
     assert resolve_device("cpu") == torch.device("cpu")
+    # On the CPU when asked (register_groupwise where its descriptors are).
+    assert groupwise_solve(edges, pts, pts, np.array([8]), 2,
+                           device="cpu").A.shape == (2, 3, 4)
+    assert register_groupwise(descriptors_from_numpy(**desc), edges,
+                              (1.0, 1.0, 1.0)).A.device.type == "cpu"
+    assert load_descriptors(str(tmp_path / "d.npz"), device="cpu").count == 1
+    assert load_keypoints(str(tmp_path / "k.npz"), device="cpu").count == 1
     # Sift3D.dense and RegSift3D.register_tps on the CPU when asked.
     assert Sift3D(device="cpu").dense(vol).shape == (12, 16, 16, 16)
     assert RegSift3D(device="cpu").register_tps(vol, vol)[1] is None
