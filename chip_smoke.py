@@ -91,7 +91,31 @@ kernel 1's shared-memory carveout holds 4 blocks an SM, then:
    each stage (detection per batch, matching, RANSAC, solve, the whole
    call), its records go through ``set_log_fn`` and ``jsonl_writer`` to
    ``build/fleet_trace.jsonl`` and are printed with the peak device
-   memory and the launch counts.
+   memory and the launch counts;
+10. drives the multi-GPU paths at world size 1: a one-rank NCCL group
+   through ``parallel.init_distributed`` (over a ``file://`` store under
+   ``build/``) and ``make_mesh(data=1, space=1)``; (a) on the 256^3
+   volume's pyramid, ``conv_sep_sharded`` within 2e-6 of ``conv_sep`` on
+   every blur, ``level_extrema_sharded`` equal to ``level_extrema`` on
+   every level, ``orient_level_sharded`` / ``descrip_level_sharded`` on
+   the first 64 rows of each bucket against kernels 3 / 1 (``valid``
+   equal outside counted near-threshold rows, R within 2e-4, descriptors
+   within 2e-3); (b) ``nn_match_sharded(streamed=True)`` (kernel 2
+   exactly twice a call, counted) and ``nn_match_ring`` on the 256^3
+   pair's sets and at 2500 x 2300, equal to ``nn_match_streamed`` and the
+   dense matcher outside near-tie rows; (c) ``batch_register_pairs(mesh=)``
+   on the 64 config-4 pairs, counters set to 0 just before: phase 5's
+   launches, no ``kp_overflow``, A within 1e-6 of phase 5's, pass rate
+   >= 0.60; then ``pipelined=True`` (levels within 2e-6 of sequential,
+   pass rate >= 0.60); (d) ``register_groupwise_sharded`` on phase 9's
+   descriptor sets and edges (``ok`` on every edge, A within 1e-9 of its
+   largest |A| of phase 9's) and ``groupwise_solve_sharded`` on
+   ``make_fleet(256)`` within 5e-2 / 5 of the truth; (e) the sharded
+   batched call (min of 5, pairs/s) beside the one-device one, timed in
+   turns, ``nn_match_sharded`` beside ``nn_match_streamed``,
+   ``register_groupwise_sharded`` beside ``register_groupwise`` and the
+   world-1 ``all_reduce`` of the 255 x 255 x 4 x 4 float64 system, with
+   the card's name and power limit. The group is destroyed at the end.
 
 Prints the card's name and power limit, a ``{"kernels": [...]}`` line and,
 last, ``{"ok": true, "device": {...}}``. Exits non-zero, with no result,
@@ -173,6 +197,10 @@ FLEET_LIN_TOL, FLEET_T_TOL = 5e-2, 5.0   # the reference's contract
 FLEET_SOLVE_RTOL = 1e-9    # card vs numpy solve, of the largest |A|
 FLEET_KILL_AFTER = 200     # simulated preemption (bench_groupwise.py:85)
 FLEET_SWEEP = (16, 64, 128, 256, 510)    # RANSAC chunks, edges
+# Phase 10: the sharded paths at world size 1 against the one-device ones
+# (tests/test_torch_parallel.py's bounds for conv and R).
+CONV_TOL = 2e-6
+SHARD_R_TOL = 2e-4
 CARD = [""]                # the card's name and power limit, once read
 
 
@@ -461,7 +489,7 @@ def main_path_args(d1, d2):
 
 
 def check_match_kernel(d_src, d_ref, dev) -> dict:
-    from sift3d_tpu_torch.features.match import nn_match, ssd_matrix
+    from sift3d_tpu_torch.features.match import nn_match
     from sift3d_tpu_torch.ops.cuda_match import nn_match_streamed
     n_fragile = 0
     max_err = 0.0
@@ -497,20 +525,8 @@ def check_match_kernel(d_src, d_ref, dev) -> dict:
         max_err = max(max_err, err)
     m_stream = nn_match_streamed(d1, d2, 0.8, v1, v2)
     m_dense = nn_match(d1, d2, 0.8, v1, v2)
-    diff = m_stream != m_dense
-    if diff.any():
-        D = ssd_matrix(d1, d2)
-        D = torch.where(v1[:, None] & v2[None, :], D, inf)
-        fv = torch.topk(D, 2, dim=1, largest=False).values
-        bv = torch.topk(D.T, 2, dim=1, largest=False).values
-        fr = _fragile(fv[:, 0], fv[:, 1], T2)
-        br = _fragile(bv[:, 0], bv[:, 1], T2)
-        j = torch.argmin(D, dim=1)
-        js = m_stream.clamp(min=0).long()
-        ok = fr | br[j] | br[js]
-        assert not (diff & ~ok).any(), \
-            f"streamed vs dense: {int((diff & ~ok).sum())} rows differ"
-        n_fragile += int(diff.sum())
+    n_fragile += same_matches(d1, d2, v1, v2, m_stream, m_dense,
+                              "streamed vs dense")
     n_matched = int((m_dense >= 0).sum())
     print(f"match_stream vs plain at the main path's {main_shape[0]}x"
           f"{main_shape[1]} and vs plain and dense at {n1}x{n2}: indices "
@@ -519,6 +535,29 @@ def check_match_kernel(d_src, d_ref, dev) -> dict:
     return dict(main_shape=main_shape, n1=n1, n2=n2,
                 near_tie_rows=n_fragile, matches=n_matched,
                 max_abs_err=max_err)
+
+
+def same_matches(d1, d2, v1, v2, got, want, label) -> int:
+    """``got`` may differ from ``want`` only on rows whose top-2 or ratio
+    decision sits within fp32 rounding by the dense SSD: forward, or
+    backward at the dense best target or at ``got``'s; returns the rows
+    that differ."""
+    from sift3d_tpu_torch.features.match import ssd_matrix
+    diff = got != want
+    if not diff.any():
+        return 0
+    inf = float("inf")
+    D = ssd_matrix(d1, d2)
+    D = torch.where(v1[:, None] & v2[None, :], D, inf)
+    fv = torch.topk(D, 2, dim=1, largest=False).values
+    bv = torch.topk(D.T, 2, dim=1, largest=False).values
+    fr = _fragile(fv[:, 0], fv[:, 1], T2)
+    br = _fragile(bv[:, 0], bv[:, 1], T2)
+    j = torch.argmin(D, dim=1)
+    ok = fr | br[j] | br[got.clamp(min=0).long()]
+    assert not (diff & ~ok).any(), \
+        f"{label}: {int((diff & ~ok).sum())} rows differ"
+    return int(diff.sum())
 
 
 def count_buckets(kp, ext) -> tuple[int, int]:
@@ -1148,7 +1187,9 @@ def fleet_deviation(A, want) -> tuple[float, float]:
 
 
 def fleet_phase(base, dev, plan4, params4, k1_times, k3_times) -> dict:
-    """Phase 9: groupwise registration of the config-5 fleet on the card.
+    """Phase 9: groupwise registration of the config-5 fleet on the card;
+    returns its record and (the fleet's descriptors, edges, A) for phase
+    10.
 
     (a) 256 rolled copies of ``base`` (volume 0 unshifted), detected and
     described in 4 batches of 64, the 510 star + loop edges through
@@ -1365,7 +1406,7 @@ def fleet_phase(base, dev, plan4, params4, k1_times, k3_times) -> dict:
           + f"; device busy {prof['device_busy_ms']:.2f} of "
           f"{prof['wall_ms']:.2f} ms, idle share {prof['idle_share']:.3f} "
           f"[{card}]")
-    return dict(counts=det_counts, expected_k1=expect_k1,
+    return (dict(counts=det_counts, expected_k1=expect_k1,
                 kp_per_volume=[int(kp_counts.min()), int(kp_counts.max())],
                 stages={r["stage"]: r["seconds"] for r in records
                         if r["kind"] == "stage"},
@@ -1375,7 +1416,278 @@ def fleet_phase(base, dev, plan4, params4, k1_times, k3_times) -> dict:
                 k1=dict(k1_t, max_abs_err=k1_worst),
                 k3=dict(k3_t, check=k3_check),
                 config5=dict(lin_dev=lin5, t_dev=t5, solve_ms=solve5,
-                             checkpoint_s=ckpt_s))
+                             checkpoint_s=ckpt_s)),
+            (desc, edges, res.A))
+
+
+def mesh_phase(dev, src, plan, params, kp_src, d_src, d_ref, big, config4,
+               phase5, fleet_state) -> dict:
+    """Phase 10: the multi-GPU paths (``parallel/``, the sharded
+    groupwise) at world size 1 under NCCL, through the port's
+    ``init_distributed`` and ``make_mesh(data=1, space=1)``: (a) the
+    sharded conv, extrema and windows on the 256^3 volume's pyramid
+    against the one-device functions and kernels 3 and 1; (b) the
+    sharded matchers, kernel 2 exactly twice a ``nn_match_sharded`` call;
+    (c) ``batch_register_pairs(mesh=)`` on the config-4 batch against
+    phase 5, then ``pipelined=True``; (d) ``register_groupwise_sharded``
+    on phase 9's fleet and ``groupwise_solve_sharded`` on
+    ``make_fleet(256)``; (e) times. The group is destroyed at the end."""
+    import torch.distributed as dist
+    from benches.data import make_fleet, pair_ok
+    from sift3d_tpu_torch import pyramid as pyr
+    from sift3d_tpu_torch.config import MatchParams, RansacParams
+    from sift3d_tpu_torch.features.descriptor import extract_level
+    from sift3d_tpu_torch.features.detect import kp_levels, level_cap
+    from sift3d_tpu_torch.features.match import nn_match
+    from sift3d_tpu_torch.features.orientation import (
+        orientations_from_tensor)
+    from sift3d_tpu_torch.ops import conv, cuda_match, cuda_orient
+    from sift3d_tpu_torch.ops.cuda_match import nn_match_streamed
+    from sift3d_tpu_torch.parallel import (
+        batch_register_pairs, conv_sep_sharded, descrip_level_sharded,
+        init_distributed, level_extrema_sharded, make_mesh, nn_match_ring,
+        nn_match_sharded, orient_level_sharded)
+    from sift3d_tpu_torch.parallel.mesh import psum
+    from sift3d_tpu_torch.parallel.pipeline import build_gpyr_batched
+    from sift3d_tpu_torch.register import groupwise as gw
+    card = CARD[0]
+    src4, ref4, plan4, params4 = config4
+    bres, batch_counts, batch_ms = phase5
+    desc9, edges9, A9 = fleet_state
+    out: dict = {}
+    store = os.path.join(ROOT, "build", f"dist_store_{os.getpid()}")
+    os.makedirs(os.path.dirname(store), exist_ok=True)
+    if os.path.exists(store):
+        os.remove(store)
+    init_distributed(f"file://{store}", world_size=1, rank=0)
+    try:
+        assert dist.get_backend() == "nccl", dist.get_backend()
+        mesh = make_mesh(data=1, space=1)
+        print(f"phase 10: backend {dist.get_backend()}, world "
+              f"{dist.get_world_size()}, mesh (data, space) = "
+              f"({mesh.data}, {mesh.space}) on {mesh.device}")
+
+        # (a) Conv, extrema and windows at S = 1 on the 256^3 pyramid.
+        gpyr, ext = extrema_of(src[None], plan, params, dev)
+        dog = pyr.build_dog(gpyr, plan)
+        conv_dev = 0.0
+        for o in range(plan.num_octaves):
+            for s in range(plan.first_level + 1, plan.last_gpyr_level + 1):
+                x, taps = gpyr[(o, s - 1)], plan.octave_filter_taps(s)
+                u = plan.octave_units(o)
+                d = (conv_sep_sharded(x, taps, 1.0, u, mesh) -
+                     conv.conv_sep(x, taps, 1.0, u)).abs().max().item()
+                conv_dev = max(conv_dev, d)
+        assert conv_dev <= CONV_TOL, conv_dev
+        ext_rows = 0
+        for o, s in kp_levels(plan):
+            got = level_extrema_sharded(
+                dog[(o, s - 1)], dog[(o, s)], dog[(o, s + 1)],
+                params.peak_thresh, level_cap(plan, o, params), mesh)
+            want = ext[(o, s)]
+            assert all(torch.equal(g, w) for g, w in zip(got, want)), (o, s)
+            ext_rows += want[0].shape[0]
+        r_dev = 0.0
+        near = n_orient = 0
+        for (o, s), a in orient_args(gpyr, ext, plan, limit=N_CHECK_ROWS):
+            A6, vd = cuda_orient.orient_terms(*a[:8], vol=a[8])
+            R_k, ok_k = orientations_from_tensor(A6, vd, params.corner_thresh)
+            R_s, ok_s = orient_level_sharded(
+                a[0], a[1][None], plan.gpyr_level(o, s).scale,
+                plan.octave_units(o), params.corner_thresh, mesh)
+            R_s, ok_s = R_s[0], ok_s[0]
+            nr = near_threshold(A6, vd, params.corner_thresh)
+            bad = (ok_k != ok_s) & ~nr
+            assert not bad.any(), f"orient_level_sharded {(o, s)}: {bad}"
+            both = ok_k & ok_s
+            if both.any():
+                r_dev = max(r_dev, (R_k[both] - R_s[both]).abs().max().item())
+            near += int((ok_k != ok_s).sum())
+            n_orient += a[2]
+        assert r_dev <= SHARD_R_TOL, r_dev
+        d_dev = 0.0
+        n_desc = 0
+        for (o, s), a in level_args(gpyr, plan, kp_src, limit=N_CHECK_ROWS):
+            level, centers, R = a[0], a[1], a[2]
+            u, scale = plan.octave_units(o), plan.gpyr_level(o, s).scale
+            want = extract_level(level, centers, R, scale, u)
+            got = descrip_level_sharded(level, centers[None], R[None], scale,
+                                        u, mesh)[0]
+            d_dev = max(d_dev, (got - want).abs().max().item())
+            n_desc += a[3]
+        assert d_dev <= DESC_TOL, d_dev
+        print(f"phase 10 (a) at S = 1 on the {SIZE}^3 pyramid: "
+              f"conv_sep_sharded vs conv_sep max |dev| {conv_dev:.3e} "
+              f"(tolerance {CONV_TOL}); level_extrema_sharded equal to "
+              f"level_extrema on {len(kp_levels(plan))} levels ({ext_rows} "
+              f"rows); orient_level_sharded vs kernel 3 on {n_orient} rows: "
+              f"valid equal except {near} near-threshold rows, R max |dev| "
+              f"{r_dev:.3e} (tolerance {SHARD_R_TOL}); descrip_level_sharded "
+              f"vs kernel 1 on {n_desc} rows: max |dev| {d_dev:.3e} "
+              f"(tolerance {DESC_TOL})")
+        out["a"] = dict(conv_dev=conv_dev, extrema_rows=ext_rows,
+                        orient_rows=n_orient, orient_near=near,
+                        orient_r_dev=r_dev, desc_rows=n_desc, desc_dev=d_dev)
+
+        # (b) The sharded matchers: kernel 2 twice a nn_match_sharded call.
+        thresh = MatchParams().nn_thresh
+        ones = [torch.ones(x.shape[0], dtype=torch.bool, device=dev)
+                for x in big]
+        sets = {f"{SIZE}^3 pair": (d_src.vec, d_ref.vec, d_src.valid_mask(),
+                                   d_ref.valid_mask()),
+                "2500x2300": (big[0], big[1], ones[0], ones[1])}
+        out["b"] = {}
+        for label, (a, b, va, vb) in sets.items():
+            cuda_match.reduce_one_way.launches = 0
+            m_sh = nn_match_sharded(a, b, thresh, mesh, valid1=va, valid2=vb,
+                                    streamed=True)
+            torch.cuda.synchronize()
+            launches = cuda_match.reduce_one_way.launches
+            assert launches == 2, launches
+            m_ring = nn_match_ring(a, b, thresh, mesh, valid1=va, valid2=vb)
+            m_str = nn_match_streamed(a, b, thresh, va, vb)
+            m_dense = nn_match(a, b, thresh, va, vb)
+            n_diff = [same_matches(a, b, va, vb, m_sh, m_str,
+                                   f"{label} sharded vs streamed"),
+                      same_matches(a, b, va, vb, m_sh, m_dense,
+                                   f"{label} sharded vs dense"),
+                      same_matches(a, b, va, vb, m_ring, m_dense,
+                                   f"{label} ring vs dense")]
+            out["b"][label] = dict(launches=launches,
+                                   matches=int((m_sh >= 0).sum()),
+                                   near_tie_rows=n_diff)
+            print(f"phase 10 (b) {label} ({a.shape[0]}x{b.shape[0]}): "
+                  f"nn_match_sharded(streamed=True) launched match_stream "
+                  f"{launches} times, {int((m_sh >= 0).sum())} matches; rows "
+                  f"differing from nn_match_streamed / dense, and ring from "
+                  f"dense, all near-ties: {n_diff}")
+        args = (big[0], big[1], thresh)
+        out["b"]["sharded_ms"] = cuda_ms(
+            lambda: nn_match_sharded(*args, mesh, streamed=True), 5)
+        out["b"]["streamed_ms"] = cuda_ms(
+            lambda: nn_match_streamed(*args), 5)
+        k2_names = ("match_top2_kernel", "merge_ranges_kernel")
+        out["b"]["sharded_kernel_ms"] = kernel_alone_ms(
+            lambda: nn_match_sharded(*args, mesh, streamed=True), k2_names, 5)
+        out["b"]["streamed_kernel_ms"] = kernel_alone_ms(
+            lambda: nn_match_streamed(*args), k2_names, 5)
+        print(f"nn_match_sharded(streamed=True) at 2500x2300, S = 1: "
+              f"{out['b']['sharded_ms']:.4f} ms against nn_match_streamed "
+              f"{out['b']['streamed_ms']:.4f} ms (mean of 5 by events); "
+              f"kernel 2 alone (both directions, range merges included) "
+              f"{fmt_ms(out['b']['sharded_kernel_ms'])} a call inside "
+              f"nn_match_sharded, {fmt_ms(out['b']['streamed_kernel_ms'])} "
+              f"inside nn_match_streamed [{card}]")
+
+        # (c) batch_register_pairs over the mesh against phase 5.
+        zero_launch_counts()
+        cuda_match.reduce_one_way.launches = 0
+        mres = batch_register_pairs(src4, ref4, plan4, params4, device=dev,
+                                    mesh=mesh)
+        torch.cuda.synchronize()
+        counts = (launch_counts()[0], cuda_match.reduce_one_way.launches,
+                  launch_counts()[1])
+        A_m, A_5 = mres.A.cpu().numpy(), bres.A.cpu().numpy()
+        a_dev = float(np.nanmax(np.abs(A_m - A_5)))
+        rate = float((mres.ok.cpu().numpy() & pair_ok(A_m)).mean())
+        n_over = int(mres.kp_overflow.sum())
+        print(f"phase 10 (c) batch_register_pairs(mesh=), {len(src4)} "
+              f"config-4 pairs: launches descrip_window {counts[0]} "
+              f"match_stream {counts[1]} orient_window {counts[2]} (phase 5: "
+              f"{tuple(batch_counts)}), kp_overflow on {n_over}, pass rate "
+              f"{rate:.3f}, max |A - phase 5's A| {a_dev:.3e}")
+        assert counts == tuple(batch_counts), (counts, batch_counts)
+        assert n_over == 0 and rate >= GATE_PASS_RATE, (n_over, rate)
+        assert a_dev <= 1e-6 and np.array_equal(np.isnan(A_m),
+                                                np.isnan(A_5)), a_dev
+        scaled = pyr.im_scale(torch.as_tensor(src4).to(dev))
+        seq = pyr.build_gpyr(scaled, plan4)
+        pip = build_gpyr_batched(scaled, plan4, mesh, pipelined=True)
+        pip_dev = max((pip[k] - v).abs().max().item() for k, v in seq.items())
+        del seq, pip, scaled
+        pres = batch_register_pairs(src4, ref4, plan4, params4, device=dev,
+                                    mesh=mesh, pipelined=True)
+        A_p = pres.A.cpu().numpy()
+        p_rate = float((pres.ok.cpu().numpy() & pair_ok(A_p)).mean())
+        print(f"phase 10 (c) pipelined=True: levels of the first batch max "
+              f"|dev| from sequential {pip_dev:.3e} (tolerance 2e-6), pass "
+              f"rate {p_rate:.3f}, kp_overflow on "
+              f"{int(pres.kp_overflow.sum())} pairs")
+        assert pip_dev <= 2e-6 and p_rate >= GATE_PASS_RATE, (pip_dev,
+                                                              p_rate)
+        # The call with and without the mesh in turns (one, mesh, mesh,
+        # one, ...): host clocks drift over the script's phases.
+        calls = {"one": [], "mesh": []}
+        for i in range(10):
+            label = ("one", "mesh")[(i + i // 2) % 2]
+            t0 = time.perf_counter()
+            batch_register_pairs(src4, ref4, plan4, params4, device=dev,
+                                 mesh=mesh if label == "mesh" else None)
+            torch.cuda.synchronize()
+            calls[label].append((time.perf_counter() - t0) * 1e3)
+        n = len(src4)
+        t_mesh, t_one = min(calls["mesh"]), min(calls["one"])
+        print(f"batch_register_pairs ({n} config-4 pairs, S = 1), in turns "
+              f"with and without the mesh, min of 5 each: mesh "
+              f"{t_mesh:.2f} ms ({n / t_mesh * 1e3:.2f} pairs/s, median "
+              f"{np.median(calls['mesh']):.2f}), one device {t_one:.2f} ms "
+              f"({n / t_one * 1e3:.2f} pairs/s, median "
+              f"{np.median(calls['one']):.2f}); phase 6's min of 5 without "
+              f"a mesh {batch_ms:.2f} ms [{card}]")
+        out["c"] = dict(counts=counts, a_dev=a_dev, pass_rate=rate,
+                        pipelined_dev=pip_dev, pipelined_pass_rate=p_rate,
+                        mesh_ms=calls["mesh"], one_device_ms=calls["one"],
+                        phase6_ms=batch_ms)
+
+        # (d) Groupwise over the mesh against phase 9.
+        units = (1.0, 1.0, 1.0)
+        res = gw.register_groupwise_sharded(desc9, edges9, units, mesh)
+        A = res.A.cpu().numpy()
+        A9n = A9.cpu().numpy()
+        gw_dev = float(np.abs(A - A9n).max() / np.abs(A9n).max())
+        assert bool(res.ok) and bool(res.edge_ok.all()), "fleet not ok"
+        assert gw_dev <= FLEET_SOLVE_RTOL, gw_dev
+        edges5, src5, ref5, cnt5, want5 = make_fleet(FLEET_VOLUMES)
+        r5 = gw.groupwise_solve_sharded(
+            edges5, src5, ref5, cnt5, FLEET_VOLUMES, mesh,
+            ransac_params=RansacParams(num_iter=60))
+        lin5, t5 = fleet_deviation(r5.A.cpu().numpy(), want5)
+        assert bool(r5.ok) and lin5 <= FLEET_LIN_TOL and t5 <= FLEET_T_TOL, \
+            (bool(r5.ok), lin5, t5)
+
+        def host_ms(fn):
+            ts = []
+            for _ in range(3):
+                t0 = time.perf_counter()
+                fn()
+                torch.cuda.synchronize()
+                ts.append((time.perf_counter() - t0) * 1e3)
+            return min(ts)
+        t_sh = host_ms(lambda: gw.register_groupwise_sharded(
+            desc9, edges9, units, mesh))
+        t_one = host_ms(lambda: gw.register_groupwise(desc9, edges9, units))
+        H = torch.zeros((FLEET_VOLUMES - 1,) * 2 + (4, 4), dtype=torch.float64,
+                        device=dev)
+        t_ar = cuda_ms(lambda: psum(H, mesh, "data"), 20)
+        print(f"phase 10 (d) register_groupwise_sharded on phase 9's "
+              f"{FLEET_VOLUMES} sets and {len(edges9)} edges: ok, every edge "
+              f"ok, A within {gw_dev:.3e} of phase 9's (tolerance "
+              f"{FLEET_SOLVE_RTOL}); groupwise_solve_sharded on "
+              f"make_fleet({FLEET_VOLUMES}): ok, |A - truth| linear "
+              f"{lin5:.4f} translation {t5:.4f}")
+        print(f"register_groupwise_sharded min of 3 {t_sh:.2f} ms against "
+              f"register_groupwise {t_one:.2f} ms (host clock, ending in a "
+              f"sync); world-1 all_reduce of the {FLEET_VOLUMES - 1}x"
+              f"{FLEET_VOLUMES - 1}x4x4 float64 system "
+              f"({H.numel() * 8 / 2**20:.2f} MiB) {t_ar:.4f} ms (mean of 20 "
+              f"by events) [{card}]")
+        out["d"] = dict(rel_dev=gw_dev, lin5=lin5, t5=t5, sharded_ms=t_sh,
+                        one_device_ms=t_one, all_reduce_ms=t_ar)
+    finally:
+        dist.destroy_process_group()
+        if os.path.exists(store):
+            os.remove(store)
+    return out
 
 
 def main() -> int:
@@ -1914,11 +2226,20 @@ def main() -> int:
     fleet_pair = next(b for b, (passed, _, _) in enumerate(seq) if passed)
     print(f"fleet base: config-4 pair {fleet_pair}'s source volume")
     t0 = time.perf_counter()
-    fleet = fleet_phase(src4[fleet_pair], dev, plan4, params4, k1_times,
-                        k3_times)
+    fleet, fleet_state = fleet_phase(src4[fleet_pair], dev, plan4, params4,
+                                     k1_times, k3_times)
     fleet_s = time.perf_counter() - t0
     print(f"phase 9: {fleet_s:.1f} s")
     detail.update(fleet=dict(fleet, base_pair=fleet_pair, phase_s=fleet_s))
+
+    # 10. The eighth slice: the multi-GPU paths at world size 1 (NCCL).
+    t0 = time.perf_counter()
+    mesh10 = mesh_phase(dev, src, plan, params, kp_src, d_src, d_ref, big,
+                        (src4, ref4, plan4, params4),
+                        (bres, batch_counts, min(bcalls)), fleet_state)
+    mesh_s = time.perf_counter() - t0
+    print(f"phase 10: {mesh_s:.1f} s")
+    detail.update(mesh=dict(mesh10, phase_s=mesh_s))
 
     log("detail: " + json.dumps(detail))
 
@@ -1946,6 +2267,12 @@ def main() -> int:
             cli_dense_256=dense["cli"]["counts"][i],
             groupwise_fleet_256=fleet["counts"][i])
     by_path["match_stream"]["groupwise_fleet_256"] = 0
+    for name, i in (("descrip_window", 0), ("match_stream", 1),
+                    ("orient_window", 2)):
+        by_path[name]["batch_config4_mesh"] = mesh10["c"]["counts"][i]
+    by_path["match_stream"].update({
+        f"nn_match_sharded_{k.replace(' ', '_')}": v["launches"]
+        for k, v in mesh10["b"].items() if isinstance(v, dict)})
     per_reg = "all launches of one 256^3 registration"
     k3_checks = (k3_check, k3_levels_check, k3_batch_check,
                  k3_batch_levels_check)
@@ -1997,7 +2324,14 @@ def main() -> int:
              multi_tile_library_ms=k2_big["library_ms"],
              multi_tile_bound_ms=k2_big["bound_ms"],
              multi_tile_ranges=k2_big["ranges"],
-             multi_tile_tile=k2_big["tile"]),
+             multi_tile_tile=k2_big["tile"],
+             sharded_launches_per_call=mesh10["b"]["2500x2300"]["launches"],
+             sharded_2500x2300_call_ms=mesh10["b"]["sharded_ms"],
+             streamed_2500x2300_call_ms=mesh10["b"]["streamed_ms"],
+             sharded_2500x2300_kernel_alone_ms=mesh10["b"][
+                 "sharded_kernel_ms"],
+             streamed_2500x2300_kernel_alone_ms=mesh10["b"][
+                 "streamed_kernel_ms"]),
         dict(name="orient_window", route="cuda",
              source="sift3d_tpu_torch/csrc/orient_window.cu",
              replaces="sift3d_tpu/ops/pallas_orient.py:38",

@@ -80,12 +80,21 @@ def orient_levels(gpyr: dict, extrema_levels: dict, plan,
     levels = keypoint_levels(gpyr, extrema_levels, plan)
     rows, R, valid = orientation.assign_orientations_levels(
         levels, params.corner_thresh)
+    return keypoints_from_rows(rows, R, valid,
+                               [r.shape[0] for _, r, _, _ in levels], plan)
+
+
+def keypoints_from_rows(rows, R, valid, sizes, plan):
+    """The kept keypoints of oriented extrema rows: ``rows`` (n, 4)
+    (volume, z, y, x), ``R`` (n, 3, 3) and ``valid`` (n,) of every level
+    in ``kp_levels`` order, ``sizes`` the rows of each level. Returns
+    ``orient_levels``' (kp, vol)."""
     keep = torch.nonzero(valid).reshape(-1)      # the stage's host sync
     # Each row's (o, s, sd), from the (levels, 4) table of (o, s, sd, rows)
     # copied once.
-    table = torch.tensor([(o, s, sd, r.shape[0]) for (o, s), (_, r, sd, _)
-                          in zip(kp_levels(plan), levels)], dtype=F64,
-                         device=rows.device)
+    table = torch.tensor([(o, s, plan.gpyr_level(o, s).scale, n)
+                          for (o, s), n in zip(kp_levels(plan), sizes)],
+                         dtype=F64, device=rows.device)
     per_row = torch.repeat_interleave(table[:, :3], table[:, 3].long(), 0,
                                       output_size=rows.shape[0])[keep]
     rows, R = rows[keep], R[keep]
@@ -96,24 +105,34 @@ def orient_levels(gpyr: dict, extrema_levels: dict, plan,
     return kp, rows[:, 0].long()
 
 
-def detect(vols, plan, params: SIFT3DParams, device):
+def detect(vols, plan, params: SIFT3DParams, device,
+           pipelined: bool = False):
     """Detect keypoints in a (B, nz, ny, nx) batch of raw volumes.
 
     Returns (gpyr, kp, vol, kp_overflow): the Gaussian pyramid
     {(o, s): (B, nz, ny, nx)}, ``orient_levels``' keypoints and volume
     index, and the (B,) flag of volumes whose extrema exceeded a level's
-    capacity. Each stage runs inside a ``sift3d.<stage>`` profiler span.
+    capacity. ``pipelined`` builds the pyramid with
+    ``pyramid.build_gpyr_pipelined``. Each stage runs inside a
+    ``sift3d.<stage>`` profiler span.
     """
     with record_function("sift3d.pyramid"):
         vols = vols if torch.is_tensor(vols) else torch.as_tensor(
             np.asarray(vols))
         vols = vols.to(device=device, dtype=torch.float32)
-        gpyr = pyr_mod.build_gpyr(pyr_mod.im_scale(vols), plan)
+        build = pyr_mod.build_gpyr_pipelined if pipelined else \
+            pyr_mod.build_gpyr
+        gpyr = build(pyr_mod.im_scale(vols), plan)
         dog = pyr_mod.build_dog(gpyr, plan)
     with record_function("sift3d.extrema"):
         ext = detect_extrema_levels(dog, plan, params)
     with record_function("sift3d.orientation"):
         kp, vol = orient_levels(gpyr, ext, plan, params)
-    overflow = torch.stack([total > count
-                            for _, count, total in ext.values()]).any(0)
-    return gpyr, kp, vol, overflow
+    return gpyr, kp, vol, overflow_flags(ext)
+
+
+def overflow_flags(extrema_levels: dict) -> torch.Tensor:
+    """(B,) flag of the volumes whose extrema exceeded a level's capacity
+    (batch-form ``extrema_levels``)."""
+    return torch.stack([total > count for _, count, total
+                        in extrema_levels.values()]).any(0)

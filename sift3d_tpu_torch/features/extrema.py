@@ -22,10 +22,14 @@ import torch
 
 
 def extrema_mask(prev: torch.Tensor, cur: torch.Tensor, nxt: torch.Tensor,
-                 peak_thresh: float) -> torch.Tensor:
+                 peak_thresh: float,
+                 dogmax: torch.Tensor | None = None) -> torch.Tensor:
     """(..., nz-2, ny-2, nx-2) bool: the interior voxels of ``cur`` that
-    are extrema, each volume against its own max |value|."""
-    dogmax = torch.amax(torch.abs(cur), dim=(-3, -2, -1), keepdim=True)
+    are extrema, each volume against its own max |value| (or the given
+    per-volume ``dogmax``, when ``cur`` is a slab of the volume)."""
+    if dogmax is None:
+        dogmax = torch.amax(torch.abs(cur), dim=(-3, -2, -1))
+    dogmax = dogmax[..., None, None, None]
     t = torch.as_tensor(peak_thresh, dtype=cur.dtype) * dogmax
 
     c = cur[..., 1:-1, 1:-1, 1:-1]

@@ -81,8 +81,10 @@ def _make_conv_matrix(taps: np.ndarray, unit: float, unit_dim: float,
 
 
 def conv_axis(vol: torch.Tensor, W, axis: int) -> torch.Tensor:
-    """Apply a 1-D convolution matrix along ``axis`` of ``vol``:
-    out[..., i, ...] = sum_j W[i, j] vol[..., j, ...], one fp32 matmul."""
+    """Apply a 1-D operator along ``axis`` of ``vol``:
+    out[..., i, ...] = sum_j W[i, j] vol[..., j, ...], one fp32 matmul.
+    ``W`` is (n_out, n) for an axis of length n: square for a blur,
+    rectangular for a sharded block or a composed pyramid operator."""
     W = torch.as_tensor(W, dtype=vol.dtype, device=vol.device)
     axis = axis % vol.ndim
     if axis == vol.ndim - 1:
@@ -91,7 +93,8 @@ def conv_axis(vol: torch.Tensor, W, axis: int) -> torch.Tensor:
     n = shape[axis]
     lead = int(np.prod(shape[:axis], dtype=np.int64))
     v = vol.reshape(lead, n, -1)
-    return torch.matmul(W, v).reshape(shape)
+    return torch.matmul(W, v).reshape(shape[:axis] + (W.shape[0],) +
+                                      shape[axis + 1:])
 
 
 def conv_sep(vol: torch.Tensor, taps: np.ndarray, unit: float,

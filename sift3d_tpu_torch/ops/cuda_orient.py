@@ -109,26 +109,41 @@ def _weight(sq, g):
     return torch.exp(-0.5 * sq / g["sig2"])
 
 
+def _offsets(starts, zyx, extents):
+    """(dz, dy, dx): the integer offsets from each row's centre ``zyx``
+    (C, 3) of a voxel grid starting at ``starts`` (C, 3) with ``extents``
+    voxels an axis, broadcastable to (C, ez, ey, ex)."""
+    d = [(starts[:, a, None] + torch.arange(extents[a], device=zyx.device))
+         - zyx[:, a, None] for a in range(3)]
+    return (d[0][:, :, None, None], d[1][:, None, :, None],
+            d[2][:, None, None, :])
+
+
+def _in_box(offsets, radii):
+    """The mask |d| <= R per axis of ``_offsets``."""
+    return ((offsets[2].abs() <= radii[2]) & (offsets[1].abs() <= radii[1]) &
+            (offsets[0].abs() <= radii[0]))
+
+
 def _frame(shape, zyx, radii, cores, g):
     """Window starts, |v|^2 (C, cz, cy, cx) and the mask |d| <= R per axis
     of a chunk of rows with integer centres ``zyx`` (C, 3)."""
     starts = window_starts(shape, zyx, radii, cores)
-    dev = zyx.device
-    d = [(starts[:, a, None] + torch.arange(cores[a], device=dev)) -
-         zyx[:, a, None] for a in range(3)]
-    dz = d[0][:, :, None, None]
-    dy = d[1][:, None, :, None]
-    dx = d[2][:, None, None, :]
-    Rz, Ry, Rx = radii
-    in_box = ((dx.abs() <= Rx) & (dy.abs() <= Ry) & (dz.abs() <= Rz))
-    return starts, _sq(dz, dy, dx, g), in_box
+    d = _offsets(starts, zyx, cores)
+    return starts, _sq(*d, g), _in_box(d, radii)
 
 
-def _plain_chunk(level, vol, zyx, radii, cores, units, g):
-    starts, sq, in_box = _frame(level.shape[1:], zyx, radii, cores, g)
-    mask = in_box & (sq <= g["rad2"])
-    gx, gy, gz = window_gradients(gather_windows(level, vol, starts, cores),
-                                  units)
+def window_sums(win, offsets, radii, units, g, keep=None):
+    """The nine window sums of a chunk of C rows: (A6 (C, 6) float64,
+    vd (C, 3) float32). ``win`` (C, ez+2, ey+2, ex+2) holds the level
+    around a grid of voxels, ``offsets`` (``_offsets``) their offsets from
+    each row's centre; a voxel counts inside the box and the sphere, and
+    where ``keep`` (broadcastable to (C, ez, ey, ex)) is True."""
+    sq = _sq(*offsets, g)
+    mask = _in_box(offsets, radii) & (sq <= g["rad2"])
+    if keep is not None:
+        mask = mask & keep
+    gx, gy, gz = window_gradients(win, units)
     w = _weight(sq, g)
     w = torch.where(mask, w, torch.zeros_like(w))
     gx64, gy64, gz64, w64 = (t.to(F64) for t in (gx, gy, gz, w))
@@ -141,6 +156,12 @@ def _plain_chunk(level, vol, zyx, radii, cores, units, g):
     vd = torch.stack([torch.sum(gx * w, dims), torch.sum(gy * w, dims),
                       torch.sum(gz * w, dims)], dim=-1)
     return A6, vd
+
+
+def _plain_chunk(level, vol, zyx, radii, cores, units, g):
+    starts = window_starts(level.shape[1:], zyx, radii, cores)
+    return window_sums(gather_windows(level, vol, starts, cores),
+                       _offsets(starts, zyx, cores), radii, units, g)
 
 
 def orient_terms_plain(level, zyx, count: int, radii, cores, units,

@@ -83,16 +83,14 @@ def geometry_constants(units, sigma: float, rad: float) -> dict:
                 bary_eps=float(np.float32(BARY_EPS)))
 
 
-def _window_frame(shape, centers, R, radii, cores, g):
-    """Window starts and the per-voxel displacement frame of a chunk of
-    rows of a (nz, ny, nx) level: returns (starts, sq (C, cz, cy, cx),
-    (vbx, vby, vbz), in_sphere)."""
+def _grid_frame(starts, extents, centers, R, g):
+    """The per-voxel displacement frame of a chunk of rows over a voxel
+    grid starting at ``starts`` (C, 3) with ``extents`` voxels an axis:
+    returns (sq (C, ez, ey, ex), (vbx, vby, vbz), in_sphere)."""
     dev = centers.device
-    starts = window_starts(shape, torch.floor(centers).long(), radii, cores)
-    cz, cy, cx = cores
-    zg = (starts[:, 0, None] + torch.arange(cz, device=dev)).float()
-    yg = (starts[:, 1, None] + torch.arange(cy, device=dev)).float()
-    xg = (starts[:, 2, None] + torch.arange(cx, device=dev)).float()
+    zg, yg, xg = ((starts[:, a, None] +
+                   torch.arange(extents[a], device=dev)).float()
+                  for a in range(3))
     vx = ((xg - centers[:, 2, None]) * g["ux"])[:, None, None, :]
     vy = ((yg - centers[:, 1, None]) * g["uy"])[:, None, :, None]
     vz = ((zg - centers[:, 0, None]) * g["uz"])[:, :, None, None]
@@ -104,30 +102,30 @@ def _window_frame(shape, centers, R, radii, cores, g):
         c = [R[:, j, i, None, None, None] for j in range(3)]
         return c[0] * vx + c[1] * vy + c[2] * vz
     vb = tuple((rt(i) + g["half_width"]) * g["bin_fctr"] for i in range(3))
-    return starts, sq, vb, in_sphere
+    return sq, vb, in_sphere
 
 
-def _chunk_terms(level, vol, centers, R, radii, cores, units, g,
-                 z_range=None):
-    """Per-voxel terms of a chunk of C rows over the core planes [z0, z1)
-    of ``z_range`` (all planes when None): bin coordinates (vbx, vby, vbz),
+def _window_frame(shape, centers, R, radii, cores, g):
+    """Window starts and the per-voxel displacement frame of a chunk of
+    rows of a (nz, ny, nx) level: returns (starts, sq (C, cz, cy, cx),
+    (vbx, vby, vbz), in_sphere)."""
+    starts = window_starts(shape, torch.floor(centers).long(), radii, cores)
+    return (starts,) + _grid_frame(starts, cores, centers, R, g)
+
+
+def voxel_terms(win, sq, vb, keep, R, units, g):
+    """Per-voxel terms of a chunk of C rows over a grid of V voxels:
     rotated weighted gradients (C, V, 3), their face, barycentrics and
     ``ok`` from ``icos_hist_bin``, and the geometry mask (C, V) of the
-    voxels in the sphere and the rotated bin cube."""
-    C = centers.shape[0]
-    V = cores[0] * cores[1] * cores[2]
-    starts, sq, vb, in_sphere = _window_frame(
-        level.shape[1:], centers, R, radii, cores, g)
-    if z_range is not None:
-        iz = torch.arange(cores[0], device=level.device)
-        in_sphere = in_sphere & ((iz >= z_range[0]) &
-                                 (iz < z_range[1]))[None, :, None, None]
+    voxels of ``keep`` inside the rotated bin cube. ``win`` (C, ez+2,
+    ey+2, ex+2) holds the level around the grid; ``sq`` and ``vb`` are
+    ``_grid_frame``'s."""
+    C = win.shape[0]
+    V = sq[0].numel()
     nh = float(NHIST_PER_DIM)
-    inside = torch.ones_like(in_sphere)
+    inside = keep
     for v in vb:
-        inside &= (v >= 0) & (v < nh)
-
-    win = gather_windows(level, vol, starts, cores)
+        inside = inside & (v >= 0) & (v < nh)
     gx, gy, gz = window_gradients(win, units)
     weight = torch.exp(-0.5 * sq / g["sig2"])
     gx = gx * weight; gy = gy * weight; gz = gz * weight
@@ -136,23 +134,32 @@ def _chunk_terms(level, vol, centers, R, radii, cores, units, g,
         [Rc[i][0] * gx + Rc[i][1] * gy + Rc[i][2] * gz for i in range(3)],
         dim=-1).reshape(C, V, 3)
     face, bary, ok = icos_hist_bin(grad_rot)
-    return vb, grad_rot, face, bary, ok, (in_sphere & inside).reshape(C, V)
+    return grad_rot, face, bary, ok, inside.reshape(C, V)
 
 
-def _plain_chunk(level, vol, centers, R, radii, cores, units, g,
+def _chunk_terms(level, vol, centers, R, radii, cores, units, g,
                  z_range=None):
-    """Raw histograms (C, 768) of a chunk of keypoints, over the core
-    planes [z0, z1) of ``z_range`` when it is given."""
-    C = centers.shape[0]
-    V = cores[0] * cores[1] * cores[2]
-    (vbx, vby, vbz), grad_rot, face, bary, ok, geom = _chunk_terms(
-        level, vol, centers, R, radii, cores, units, g, z_range)
+    """Per-voxel terms of a chunk of C rows over the core planes [z0, z1)
+    of ``z_range`` (all planes when None): bin coordinates (vbx, vby, vbz)
+    and ``voxel_terms`` over the voxels in the sphere."""
+    starts, sq, vb, in_sphere = _window_frame(
+        level.shape[1:], centers, R, radii, cores, g)
+    if z_range is not None:
+        iz = torch.arange(cores[0], device=level.device)
+        in_sphere = in_sphere & ((iz >= z_range[0]) &
+                                 (iz < z_range[1]))[None, :, None, None]
+    win = gather_windows(level, vol, starts, cores)
+    return (vb,) + voxel_terms(win, sq, vb, in_sphere, R, units, g)
+
+
+def histograms(vb, grad_rot, face, bary, ok, geom) -> torch.Tensor:
+    """Raw histograms (C, 768) from a chunk's ``_chunk_terms``: each
+    voxel's magnitude into its face's three vertices, spread trilinearly
+    over the 4^3 spatial bins (SIFT3D_desc_acc_interp, sift.c:1732-1755)."""
+    C, V = geom.shape
     mag = torch.sqrt(torch.sum(grad_rot * grad_rot, -1))
     Gmat = vertex_weights(face, bary) * (mag * (geom & ok))[..., None]
-
-    # Trilinear spatial weights over the 4^3 histogram grid
-    # (SIFT3D_desc_acc_interp, sift.c:1732-1755).
-    b = torch.arange(NHIST_PER_DIM, device=level.device)
+    b = torch.arange(NHIST_PER_DIM, device=geom.device)
 
     def axis_w(vb):
         vb = vb.reshape(C, V)
@@ -160,11 +167,19 @@ def _plain_chunk(level, vol, centers, R, radii, cores, units, g,
         fr = (vb - flo)[..., None]
         flo = flo.long()[..., None]
         return ((flo == b) * (1.0 - fr) + ((flo + 1) == b) * fr).float()
-    wx, wy, wz = axis_w(vbx), axis_w(vby), axis_w(vbz)
+    wx, wy, wz = (axis_w(v) for v in vb)
     S = (wz[..., :, None, None] * wy[..., None, :, None] *
          wx[..., None, None, :]).reshape(C, V, DESC_NUM_TOTAL_HIST)
     hist = torch.bmm(S.transpose(1, 2), Gmat)          # (C, 64, 12)
     return hist.reshape(C, DESC_NUMEL)
+
+
+def _plain_chunk(level, vol, centers, R, radii, cores, units, g,
+                 z_range=None):
+    """Raw histograms (C, 768) of a chunk of keypoints, over the core
+    planes [z0, z1) of ``z_range`` when it is given."""
+    return histograms(*_chunk_terms(level, vol, centers, R, radii, cores,
+                                    units, g, z_range))
 
 
 def descrip_window_plain(level, centers, R, count: int, radii, cores,

@@ -154,6 +154,85 @@ def build_gpyr(vol: torch.Tensor, plan: PyramidPlan) -> dict:
     return levels
 
 
+# --- octave-pipelined builder (composed per-axis operators) ----------------
+#
+# Every step of build_gpyr is a linear per-axis operator: a blur is a banded
+# matrix (ops/conv.py) and the 2x downsample-pick a row selection. So the
+# pyramid factors exactly into per-axis matrices composed on the host in
+# float64 (the JAX package's pyramid.py:205-286):
+#
+#   seed(o)     = M_o  @ seed(0)          (M_o rectangular, n_o x n_base)
+#   level(o, s) = C_os @ seed(o)          (C_os square, composed blurs)
+#
+# The dependency depth drops from 1 + num_octaves * (num_gpyr_levels - 2)
+# convolutions to 3 (first blur, seed projection, level projection), equal
+# to the sequential builder within float32 rounding.
+
+def composed_pyramid_operators(plan: PyramidPlan):
+    """Host-side composed per-axis operators of the pipelined builder.
+
+    Returns ``(seed_ops, level_ops)``: ``seed_ops[o]`` the (x, y, z)
+    matrices mapping the octave-0 seed (level ``(0, first)``) to octave o's
+    seed (None for o = 0), ``level_ops[(o, s)]`` those mapping octave o's
+    seed to level ``(o, s)`` for s > first; float32, composed in float64.
+    """
+    first = plan.first_level
+    last = plan.last_gpyr_level
+    ds = plan.downsample_level
+    level_ops: dict = {}
+    seed_ops: list = [None]
+    # M per axis accumulates the seed projection; identity at octave 0.
+    M = [np.eye(n, dtype=np.float64) for n in plan.dims]
+    for o in range(plan.num_octaves):
+        units_o = plan.octave_units(o)
+        dims_o = plan.octave_dims(o)
+        C = [np.eye(n, dtype=np.float64) for n in dims_o]
+        for s in range(first + 1, last + 1):
+            taps = plan.octave_filter_taps(s)
+            for d, (n, u) in enumerate(zip(dims_o, units_o)):
+                W = conv.conv_matrix(taps, 1.0, u, n).astype(np.float64)
+                C[d] = W @ C[d]
+            level_ops[(o, s)] = tuple(c.astype(np.float32) for c in C)
+            if s == ds and o + 1 < plan.num_octaves:
+                # Seed of the next octave: the strided 2x downsample-pick
+                # of this level (sift.c:1029-1042) composed into M.
+                for d, n_next in enumerate(plan.octave_dims(o + 1)):
+                    M[d] = C[d][np.arange(n_next) * 2] @ M[d]
+        if o + 1 < plan.num_octaves:
+            seed_ops.append(tuple(m.astype(np.float32) for m in M))
+    return seed_ops, level_ops
+
+
+def apply_sep_ops(vol: torch.Tensor, ops) -> torch.Tensor:
+    """Apply per-axis (x, y, z) operators, x then y then z (the conv_sep
+    order, imutil.c:3494-3526), to a volume or a batch."""
+    Wx, Wy, Wz = ops
+    vol = conv.conv_axis(vol, Wx, -1)
+    vol = conv.conv_axis(vol, Wy, -2)
+    return conv.conv_axis(vol, Wz, -3)
+
+
+def build_gpyr_pipelined(vol: torch.Tensor, plan: PyramidPlan,
+                         ops=None) -> dict:
+    """Octave-pipelined Gaussian pyramid: ``build_gpyr``'s {(o, s): tensor}
+    for a volume or a batch, equal to it within float32 rounding, each
+    level at dependency depth 3. ``ops``: ``composed_pyramid_operators``'
+    result, if the caller holds it."""
+    if ops is None:
+        ops = composed_pyramid_operators(plan)
+    seed_ops, level_ops = ops
+    first = plan.first_level
+    levels: dict = {}
+    seed0 = conv.conv_sep(vol, plan.first_gauss_taps(), 1.0,
+                          plan.octave_units(0))
+    for o in range(plan.num_octaves):
+        seed = seed0 if o == 0 else apply_sep_ops(seed0, seed_ops[o])
+        levels[(o, first)] = seed
+        for s in range(first + 1, plan.last_gpyr_level + 1):
+            levels[(o, s)] = apply_sep_ops(seed, level_ops[(o, s)])
+    return levels
+
+
 def build_dog(gpyr: dict, plan: PyramidPlan) -> dict:
     """DoG levels: dog(o, s) = gpyr(o, s) - gpyr(o, s+1) (sift.c:1052-1071)."""
     dog: dict = {}

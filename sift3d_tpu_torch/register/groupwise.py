@@ -284,3 +284,133 @@ def register_groupwise(descriptors, edges_ij, units,
                            ransac_params=ransac_params,
                            device=descriptors.vec.device,
                            ransac_idx=ransac_idx)
+
+
+# --- over a mesh: the edges split over an axis ------------------------------
+
+def _edge_slice(E: int, mesh, axis_name: str):
+    """(first, end, per-rank) edges of this rank: the E edges padded to a
+    multiple of the axis size, a contiguous block a rank."""
+    per = -(-E // mesh.size(axis_name))
+    lo = min(E, mesh.index(axis_name) * per)
+    return lo, min(E, lo + per), per
+
+
+def _padded(t: torch.Tensor, n: int) -> torch.Tensor:
+    """``t`` with zero rows appended up to n rows."""
+    return torch.cat([t, t.new_zeros((n - t.shape[0],) + t.shape[1:])])
+
+
+def _solve_sharded(edges_l, src, ref, counts, idx, n_real: int,
+                   num_volumes: int, mesh, axis_name: str,
+                   ransac_params: RansacParams, ridge: float, E: int):
+    """The shard_map body of ``groupwise_solve_sharded``: this rank's
+    (per, M, 3) edge block, its first ``n_real`` rows real, the rest
+    inactive (count 0)."""
+    from ..parallel.mesh import all_gather, psum
+    dev = src.device
+    real = torch.arange(src.shape[0], device=dev) < n_real
+    with record_function("sift3d.ransac"):
+        n_in, inlier = _ransac_edges(src, ref, counts, ransac_params, idx)
+    with record_function("sift3d.groupwise_solve"):
+        w = real.to(F64)
+        # The centring offset from the valid points of every rank.
+        csum, cn = _point_centroid(src, ref, counts * real)
+        c = psum(csum, mesh, axis_name) / \
+            psum(cn[None], mesh, axis_name)[0].clamp(min=1.0)
+        Gpp, Gqq, Gpq = _edge_blocks(src - c, ref - c,
+                                     inlier.to(F64) * w[:, None])
+        H4, rhs4 = _accumulate_system(edges_l, Gpp, Gqq, Gpq, w,
+                                      num_volumes)
+        A = _uncenter(_solve_reduced(psum(H4, mesh, axis_name),
+                                     psum(rhs4, mesh, axis_name),
+                                     num_volumes, ridge), c)
+    # Every rank's edges in order: the padding is past the E real ones.
+    n_in = all_gather(n_in, mesh, axis_name).reshape(-1)[:E]
+    edge_ok = n_in >= RANSAC_MIN_INLIERS
+    return GroupwiseResult(A=A, edge_inliers=n_in.int(), edge_ok=edge_ok,
+                           ok=edge_ok.all() & torch.isfinite(A).all())
+
+
+def groupwise_solve_sharded(edges_ij, src_pts, ref_pts, counts,
+                            num_volumes: int, mesh, axis_name: str = "data",
+                            ransac_params: RansacParams = RansacParams(),
+                            ridge: float = 1e-9, device=None,
+                            ransac_idx: torch.Tensor | None = None
+                            ) -> GroupwiseResult:
+    """Distributed ``groupwise_solve``: the edges split over ``axis_name``
+    of ``mesh`` (``parallel.mesh.make_mesh``).
+
+    Every rank takes the same global inputs (as ``groupwise_solve``) and
+    uploads its block of edges: the E edges padded to a multiple of the
+    axis size with inactive ones (count 0), a contiguous block a rank. A
+    rank RANSAC-filters its edges and accumulates their Gram blocks into a
+    partial reduced system in float64; an ``all_reduce`` sums the centring
+    offset's terms and the partial (N-1, N-1, 4, 4) systems, and every rank
+    solves. ``device``: None is the card (and raises without one); the
+    mesh must be on the same kind of device. Returns the GroupwiseResult
+    of all E edges on every rank.
+    """
+    from ..parallel.mesh import mesh_device
+    edges = _check_edges(edges_ij)
+    ransac_params.validate()
+    dev = mesh_device(mesh, device)
+    E = len(edges)
+    lo, hi, per = _edge_slice(E, mesh, axis_name)
+
+    def block(a, dtype):
+        return _padded(torch.as_tensor(a[lo:hi]).to(device=dev, dtype=dtype),
+                       per)
+    idx = None if ransac_idx is None else block(ransac_idx, torch.long)
+    return _solve_sharded(block(edges, torch.long), block(src_pts, F64),
+                          block(ref_pts, F64), block(counts, torch.long), idx,
+                          hi - lo, num_volumes, mesh, axis_name,
+                          ransac_params, ridge, E)
+
+
+def register_groupwise_sharded(descriptors, edges_ij, units, mesh,
+                               axis_name: str = "data",
+                               match_params: MatchParams | None = None,
+                               ransac_params: RansacParams = RansacParams(),
+                               ssd_dtype=torch.float32,
+                               ransac_idx: torch.Tensor | None = None,
+                               device=None) -> GroupwiseResult:
+    """Distributed ``register_groupwise``: the edge work (matching, RANSAC,
+    Gram accumulation) split over ``axis_name``, the descriptors the same
+    on every rank, the reduced solve on every rank after an
+    ``all_reduce`` (``groupwise_solve_sharded``).
+
+    Args as ``register_groupwise`` plus the mesh; ``descriptors`` may lie
+    anywhere (each rank uploads the set); ``device``: None is the card
+    (and raises without one).
+    """
+    if ssd_dtype != torch.float32:
+        raise ValueError(f"ssd_dtype={ssd_dtype}: the port matches in "
+                         "float32 only")
+    from ..parallel.mesh import mesh_device
+    if match_params is None:
+        match_params = MatchParams()
+    edges = _check_edges(edges_ij)
+    ransac_params.validate()
+    dev = mesh_device(mesh, device)
+    desc = dataclasses.replace(descriptors, **{
+        f: getattr(descriptors, f).to(dev)
+        for f in ("xyz", "sd", "vec", "count")})
+    E = len(edges)
+    lo, hi, per = _edge_slice(E, mesh, axis_name)
+    K = desc.capacity
+    with record_function("sift3d.match"):
+        if hi > lo:
+            src, ref, cnt = _match_edges(desc, edges[lo:hi], units,
+                                         match_params)
+        else:
+            src = ref = torch.zeros((0, K, 3), dtype=F64, device=dev)
+            cnt = torch.zeros(0, dtype=torch.long, device=dev)
+    edges_l = torch.as_tensor(edges[lo:hi]).to(device=dev, dtype=torch.long)
+    idx = None if ransac_idx is None else _padded(
+        torch.as_tensor(ransac_idx[lo:hi]).to(device=dev, dtype=torch.long),
+        per)
+    return _solve_sharded(_padded(edges_l, per), _padded(src, per),
+                          _padded(ref, per), _padded(cnt.long(), per), idx,
+                          hi - lo, int(desc.count.shape[0]), mesh,
+                          axis_name, ransac_params, 1e-9, E)

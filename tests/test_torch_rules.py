@@ -3,6 +3,7 @@ its entry points refuse to run on the CPU unless asked, and every kernel
 wrapper dispatches by the device of its input (plain version on the CPU)."""
 
 import ast
+import dataclasses
 import os
 import subprocess
 import sys
@@ -44,7 +45,12 @@ def test_import_pulls_in_no_jax():
             "sift3d_tpu_torch.register, sift3d_tpu_torch.register.groupwise, "
             "sift3d_tpu_torch.utils, sift3d_tpu_torch.utils.trace, "
             "sift3d_tpu_torch.utils.roofline, "
-            "sift3d_tpu_torch.utils.checkpoint\n"
+            "sift3d_tpu_torch.utils.checkpoint, sift3d_tpu_torch.parallel, "
+            "sift3d_tpu_torch.parallel.mesh, "
+            "sift3d_tpu_torch.parallel.shard_conv, "
+            "sift3d_tpu_torch.parallel.shard_extrema, "
+            "sift3d_tpu_torch.parallel.shard_match, "
+            "sift3d_tpu_torch.parallel.shard_windows\n"
             "bad = [m for m in sys.modules if m == 'jax' or "
             "m.startswith(('jax.', 'jaxlib', 'sift3d_tpu.')) or "
             "m == 'sift3d_tpu']\n"
@@ -125,6 +131,87 @@ def test_entry_points_refuse_cpu_fallback(tmp_path):
     # Sift3D.dense and RegSift3D.register_tps on the CPU when asked.
     assert Sift3D(device="cpu").dense(vol).shape == (12, 16, 16, 16)
     assert RegSift3D(device="cpu").register_tps(vol, vol)[1] is None
+
+
+def _cpu_mesh():
+    """A one-rank mesh object on the CPU (no process group behind it: the
+    entry points below must refuse before they use it)."""
+    from sift3d_tpu_torch.parallel.mesh import Mesh
+    return Mesh(1, 1, 0, 0, torch.device("cpu"), {})
+
+
+def _gw_desc():
+    return descriptors_from_numpy(
+        xyz=np.zeros((2, 4, 3)), sd=np.zeros((2, 4)),
+        vec=np.zeros((2, 4, 768), np.float32), count=np.array([4, 4]))
+
+
+@pytest.mark.parametrize("entry", [
+    "init_distributed", "make_mesh", "batch_detect_describe",
+    "batch_register_pairs", "groupwise_solve_sharded",
+    "register_groupwise_sharded"])
+def test_mesh_entry_points_refuse_cpu_fallback(entry):
+    """The multi-GPU entry points run on the card by default and raise
+    without one, before they start a group or read a mesh."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default device is valid")
+    from sift3d_tpu_torch.parallel import init_distributed, make_mesh
+    from sift3d_tpu_torch.register.groupwise import (
+        groupwise_solve_sharded, register_groupwise_sharded)
+    vols = np.zeros((1, 16, 16, 16), np.float32)
+    pts = np.zeros((1, 8, 3))
+    calls = {
+        "init_distributed": lambda: init_distributed(),
+        "make_mesh": lambda: make_mesh(),
+        "batch_detect_describe": lambda: tpipe.batch_detect_describe(
+            vols, None, SIFT3DParams(), mesh=_cpu_mesh()),
+        "batch_register_pairs": lambda: tpipe.batch_register_pairs(
+            vols, vols, None, SIFT3DParams(), mesh=_cpu_mesh()),
+        "groupwise_solve_sharded": lambda: groupwise_solve_sharded(
+            np.array([(0, 1)]), pts, pts, np.array([8]), 2, _cpu_mesh()),
+        "register_groupwise_sharded": lambda: register_groupwise_sharded(
+            _gw_desc(), np.array([(0, 1)]), (1.0, 1.0, 1.0), _cpu_mesh()),
+    }
+    with pytest.raises(RuntimeError, match="CUDA"):
+        calls[entry]()
+    import torch.distributed as dist
+    assert not dist.is_initialized()
+
+
+def test_mesh_entry_points_run_on_cpu_when_asked():
+    """With ``device="cpu"``: ``init_distributed`` starts no group for one
+    process, ``make_mesh`` makes a one-rank gloo group, and the meshed
+    entry points run on it."""
+    import torch.distributed as dist
+    from sift3d_tpu_torch import pyramid as tpyr
+    from sift3d_tpu_torch.parallel import init_distributed, make_mesh
+    from sift3d_tpu_torch.register.groupwise import (
+        groupwise_solve_sharded, register_groupwise_sharded)
+    assert init_distributed(device="cpu") == torch.device("cpu")
+    assert not dist.is_initialized()
+    m = make_mesh(device="cpu")
+    try:
+        assert dist.get_backend() == "gloo"
+        assert (m.data, m.space, m.d, m.s) == (1, 1, 0, 0)
+        vols = np.zeros((2, 16, 16, 16), np.float32)
+        params = SIFT3DParams()
+        plan = tpyr.plan_pyramid((16, 16, 16), (1.0, 1.0, 1.0), params)
+        res = tpipe.batch_register_pairs(vols, vols, plan, params,
+                                         device="cpu", mesh=m)
+        assert res.A.shape == (2, 3, 4) and not res.ok.any()
+        with pytest.raises(ValueError, match="mesh"):
+            tpipe.batch_detect_describe(vols, plan, params, device="cpu",
+                                        mesh=dataclasses.replace(
+                                            m, device=torch.device("meta")))
+        edges = np.array([(0, 1)])
+        pts = np.zeros((1, 8, 3))
+        assert groupwise_solve_sharded(edges, pts, pts, np.array([8]), 2, m,
+                                       device="cpu").A.shape == (2, 3, 4)
+        assert register_groupwise_sharded(
+            _gw_desc(), edges, (1.0, 1.0, 1.0), m,
+            device="cpu").A.device.type == "cpu"
+    finally:
+        dist.destroy_process_group()
 
 
 @pytest.mark.parametrize("cli,argv", [
