@@ -115,7 +115,27 @@ kernel 1's shared-memory carveout holds 4 blocks an SM, then:
    turns, ``nn_match_sharded`` beside ``nn_match_streamed``,
    ``register_groupwise_sharded`` beside ``register_groupwise`` and the
    world-1 ``all_reduce`` of the 255 x 255 x 4 x 4 float64 system, with
-   the card's name and power limit. The group is destroyed at the end.
+   the card's name and power limit. The group is destroyed at the end;
+11. sets the convolution's form by measurement
+   (``scripts/conv_banded_ab.py``): on n^3 volumes, n in {128, 192, 256,
+   384, 512}, for each axis and for the pyramid's widest and narrowest
+   octave-0 taps and the dense blur's, times the dense ``conv_axis``
+   against the framed form at tiles of 64, 128 and 256 in turns (min and
+   median of 5 by events, TFLOP/s, peak memory), holding every framed
+   result within 2e-6 of the dense one's largest |value|, and
+   ``apply_banded_matrix`` likewise on the 256^3 plan's composed pyramid
+   operators; asserts that ``ops/conv.py``'s ``BANDED_MIN_N`` and
+   ``FRAME_TILE`` are what the rule picks from this table (``pick``).
+   Then, with the form forced by the module constant: detection of the
+   256^3 volume framed and dense (extrema rows equal except rows whose
+   margin lies within twice the levels' DoG deviation, and orientation
+   ``valid`` equal outside counted near-threshold rows, R within 2e-4),
+   the pair registered framed inside the 5e-2 / 5-voxel contract; the
+   256^3 ``register`` (min of 5, and its ``sift3d.pyramid`` span's device
+   busy against the pyramid's arithmetic at 67 TFLOP/s) and config 3 at
+   512^3 (ms by events, peak memory) as committed, dense and framed, in
+   turns, with the card's name and power limit. Phase 8's golden check
+   runs with the committed form and says which form its blur took.
 
 Prints the card's name and power limit, a ``{"kernels": [...]}`` line and,
 last, ``{"ok": true, "device": {...}}``. Exits non-zero, with no result,
@@ -827,6 +847,7 @@ def dense_phase(src, dev) -> dict:
     from sift3d_tpu_torch.config import SIFT3DParams
     from sift3d_tpu_torch.features import dense as fdense
     from sift3d_tpu_torch.io import Volume, im_read, im_write
+    from sift3d_tpu_torch.ops import conv
 
     golden = np.load(os.path.join(ROOT, DENSE_GOLDEN))
     n = DENSE_SIZE
@@ -836,6 +857,7 @@ def dense_phase(src, dev) -> dict:
     params = SIFT3DParams()
     form = ("channel-sequential" if vol.size >= fdense.DENSE_CHANNEL_SEQ_VOX
             else "all at once")
+    blur = "framed" if n >= conv.BANDED_MIN_N else "dense"
     s = api.Sift3D(params)
     zero_launch_counts()
     t0 = time.perf_counter()
@@ -850,7 +872,9 @@ def dense_phase(src, dev) -> dict:
     dev_mean = float(np.abs(ch_mean - golden["ch_mean"]).max())
     absmax = np.array([np.abs(out[c]).max() for c in range(12)])
     dev_absmax = float(np.abs(absmax - golden["ch_absmax"]).max())
-    print(f"dense {n}^3 (config 3, {form}) vs the C golden: stride-"
+    print(f"dense {n}^3 (config 3, {form}, {blur} blur: BANDED_MIN_N "
+          f"{conv.BANDED_MIN_N}, FRAME_TILE {conv.FRAME_TILE}) vs the C "
+          f"golden: stride-"
           f"{DENSE_STRIDE} subsample max |dev| {dev_sub:.3e}, channel means "
           f"{dev_mean:.3e} (tolerance {DESC_TOL}), channel |max| "
           f"{dev_absmax:.3e} (not asserted); launches descrip_window "
@@ -917,11 +941,12 @@ def dense_phase(src, dev) -> dict:
           f"read {t_cli['read']:.3f} + compute {t_cli['compute']:.3f} + write "
           f"{t_cli['write']:.3f}; launches descrip_window {cli_counts[0]} "
           f"orient_window {cli_counts[1]} [{CARD[0]}]")
-    return dict(form=form, counts=counts, api_s=api_s, ms=[r[0] for r in runs],
+    return dict(form=form, blur=blur, counts=counts, api_s=api_s,
+                ms=[r[0] for r in runs],
                 peak_bytes=[r[1] for r in runs], all_at_once=whole,
                 max_abs_dev_sub=dev_sub, max_abs_dev_mean=dev_mean,
                 max_abs_dev_absmax=dev_absmax, volume_gen_s=gen_s,
-                cli=dict(t_cli, counts=cli_counts, max_abs_dev=cli_dev))
+                cli=dict(t_cli, counts=cli_counts, max_abs_dev=cli_dev)), vol
 
 
 def rotate_phase(dev, corner_thresh) -> dict:
@@ -1690,6 +1715,232 @@ def mesh_phase(dev, src, plan, params, kp_src, d_src, d_ref, big, config4,
     return out
 
 
+def ext_margin(dog, key, rows, peak_thresh):
+    """Each extrema row's (vol, z, y, x) margin on DoG level ``key``: the
+    least of |value| - threshold and its |difference| from the 8 values
+    it is compared with (``features/extrema.extrema_mask``)."""
+    o, s = key
+    prev, cur, nxt = dog[(o, s - 1)], dog[(o, s)], dog[(o, s + 1)]
+    b, z, y, x = rows.long().T
+    c = cur[b, z, y, x]
+    m = c.abs() - peak_thresh * cur.abs().amax(dim=(-3, -2, -1))[b]
+    for nb in (prev[b, z, y, x], nxt[b, z, y, x], cur[b, z, y, x + 1],
+               cur[b, z, y, x - 1], cur[b, z, y + 1, x], cur[b, z, y - 1, x],
+               cur[b, z + 1, y, x], cur[b, z - 1, y, x]):
+        m = torch.minimum(m, (c - nb).abs())
+    return m
+
+
+def compare_detections(runs, plan, params) -> dict:
+    """Two detections of one volume (``extrema_of``'s pyramid and rows,
+    one a form): the extrema rows of each level equal except rows whose
+    margin, in the detection that has them, is within twice the level's
+    DoG deviation between the two (only those can change side); on the
+    rows both have, kernel 3's ``valid`` equal except near-threshold rows
+    (counted) and R within SHARD_R_TOL where both are valid."""
+    from sift3d_tpu_torch import pyramid as pyr
+    from sift3d_tpu_torch.features.detect import kp_levels
+    from sift3d_tpu_torch.features.orientation import orientations_from_tensor
+    from sift3d_tpu_torch.ops import cuda_orient
+    (g1, e1), (g2, e2) = runs
+    d1, d2 = pyr.build_dog(g1, plan), pyr.build_dog(g2, plan)
+    common: dict = {}
+    n_diff = n_rows = 0
+    level_dev = 0.0
+    for key in kp_levels(plan):
+        o, s = key
+        dev_ = max((d1[(o, t)] - d2[(o, t)]).abs().max().item()
+                   for t in (s - 1, s, s + 1))
+        level_dev = max(level_dev, dev_)
+        r1, r2 = e1[key][0], e2[key][0]
+        t1 = {tuple(r) for r in r1.tolist()}
+        t2 = {tuple(r) for r in r2.tolist()}
+        for dog, rows, other in ((d1, r1, t2), (d2, r2, t1)):
+            only = torch.tensor([r for r in rows.tolist()
+                                 if tuple(r) not in other],
+                                dtype=torch.long, device=rows.device)
+            if only.numel():
+                m = ext_margin(dog, key, only, params.peak_thresh)
+                assert (m <= 2 * dev_).all(), \
+                    f"extrema {key}: rows {only.tolist()} margins {m.tolist()}"
+                n_diff += only.shape[0]
+        keep = torch.tensor([tuple(r) in t2 for r in r1.tolist()],
+                            dtype=torch.bool, device=r1.device)
+        common[key] = (r1[keep],)
+        n_rows += int(keep.sum())
+    near = n_orient = 0
+    r_dev = 0.0
+    got = [dict(orient_args(g, common, plan)) for g in (g1, g2)]
+    for key, a1 in got[0].items():
+        out = []
+        for a in (a1, got[1][key]):
+            A6, vd = cuda_orient.orient_terms(*a[:8], vol=a[8])
+            out.append((A6, vd) + orientations_from_tensor(
+                A6, vd, params.corner_thresh))
+        (A1, v1, R1, ok1), (A2, v2, R2, ok2) = out
+        nr = near_threshold(A1, v1, params.corner_thresh) | \
+            near_threshold(A2, v2, params.corner_thresh)
+        bad = (ok1 != ok2) & ~nr
+        assert not bad.any(), f"orientation {key}: {int(bad.sum())} rows"
+        both = ok1 & ok2
+        if both.any():
+            r_dev = max(r_dev, (R1[both] - R2[both]).abs().max().item())
+        near += int((ok1 != ok2).sum())
+        n_orient += a1[2]
+    assert r_dev <= SHARD_R_TOL, r_dev
+    return dict(dog_dev=level_dev, extrema_rows_differing=n_diff,
+                common_rows=n_rows, orient_rows=n_orient,
+                orient_near=near, orient_r_dev=r_dev)
+
+
+def pyramid_flops(plan, banded_min_n: int) -> float:
+    """The matmul FLOPs of one ``build_gpyr`` with the framed form from
+    ``banded_min_n``: 2 n a voxel and axis dense, 2 K = 2 (T + 2H)
+    framed."""
+    from sift3d_tpu_torch.ops import conv
+    total = 0.0
+    for o in range(plan.num_octaves):
+        dims = plan.octave_dims(o)
+        vox = float(np.prod(dims))
+        blurs = [(plan.first_gauss_taps(), plan.octave_units(0))] if o == 0 \
+            else []
+        blurs += [(plan.octave_filter_taps(s), plan.octave_units(o))
+                  for s in range(plan.first_level + 1,
+                                 plan.last_gpyr_level + 1)]
+        for taps, units in blurs:
+            for n, u in zip(dims, units):
+                if n >= banded_min_n:
+                    _, tiles = conv.banded_frame_tiles(
+                        conv.conv_matrix(taps, 1.0, u, n))
+                    total += 2.0 * tiles.shape[2] * vox
+                else:
+                    total += 2.0 * n * vox
+    return total
+
+
+def banded_phase(dev, src, ref, plan, params, vol512) -> dict:
+    """Phase 11: the convolution's crossover on the card
+    (``scripts/conv_banded_ab.py``), the committed ``BANDED_MIN_N`` and
+    ``FRAME_TILE`` held to the rule's choice, and the paths the choice
+    reaches with the form forced by the module constant (restored after
+    each block)."""
+    from benches.data import pair_ok
+    from scripts.conv_banded_ab import (SENTINEL, banded_min_n,
+                                        check_composed, crossover, pick)
+    from scripts.profile_register import profile_call
+    from sift3d_tpu_torch import RegSift3D
+    from sift3d_tpu_torch.features import dense as fdense
+    from sift3d_tpu_torch.ops import conv
+    from sift3d_tpu_torch.utils.roofline import H100_SXM
+    card = CARD[0]
+    rows = crossover(dev)
+    composed = check_composed(dev)
+    rule = pick(rows)
+    committed = (conv.BANDED_MIN_N, conv.FRAME_TILE)
+    print(f"phase 11 rule on this table: BANDED_MIN_N {rule[0]}, "
+          f"FRAME_TILE {rule[1]}; committed {committed[0]}, {committed[1]} "
+          f"[{card}]")
+    assert rule == committed, \
+        f"this card's table picks {rule}, not the committed {committed}"
+
+    # Detection of the 256^3 volume framed and dense; the pair framed.
+    det = []
+    for n in (1, SENTINEL):
+        with banded_min_n(n):
+            det.append(extrema_of(src[None], plan, params, dev))
+    cmp_ = compare_detections(det, plan, params)
+    del det
+    with banded_min_n(1):
+        res = RegSift3D(device=dev).register(src, ref)
+    ok = bool(res.ok and pair_ok(res.A) and not res.kp_overflow)
+    print(f"detection {SIZE}^3 framed vs dense: DoG max |dev| "
+          f"{cmp_['dog_dev']:.3e}; extrema rows differing "
+          f"{cmp_['extrema_rows_differing']} (each within twice the DoG "
+          f"deviation of its test), {cmp_['common_rows']} rows in both; "
+          f"orientation valid equal except {cmp_['orient_near']} "
+          f"near-threshold rows of {cmp_['orient_rows']}, R max |dev| "
+          f"{cmp_['orient_r_dev']:.3e} (tolerance {SHARD_R_TOL}); register "
+          f"framed: ok={ok}, matches {len(res.match_src)}, inliers "
+          f"{res.num_inliers}, A={np.round(res.A, 4).tolist()}")
+    assert ok, "the framed 256^3 pair is outside the contract"
+
+    # The 256^3 register and config 3 at 512^3, each setting in turns.
+    settings = {"committed": conv.BANDED_MIN_N, "dense": SENTINEL,
+                "framed": 1}
+    reg = RegSift3D(device=dev)
+    reg_ms = {k: [] for k in settings}
+    for k, n in settings.items():
+        with banded_min_n(n):
+            reg.register(src, ref)
+    for _ in range(5):
+        for k, n in settings.items():
+            with banded_min_n(n):
+                t0 = time.perf_counter()
+                reg.register(src, ref)
+                torch.cuda.synchronize()
+                reg_ms[k].append((time.perf_counter() - t0) * 1e3)
+    pyr_stage = {}
+    for k, n in settings.items():
+        with banded_min_n(n):
+            _, prof = profile_call(lambda: reg.register(src, ref))
+        flops = 2 * pyramid_flops(plan, n)
+        busy = prof["stages"]["pyramid"]["device_busy_ms"]
+        pyr_stage[k] = dict(
+            host_ms=prof["stages"]["pyramid"]["host_ms"], device_busy_ms=busy,
+            flops=flops, floor_ms=flops / (H100_SXM.fp32_tflops * 1e12) * 1e3,
+            tflops=flops / busy / 1e9, idle_share=prof["idle_share"])
+    for k in settings:
+        p = pyr_stage[k]
+        print(f"register {SIZE}^3 {k} (BANDED_MIN_N {settings[k]}): min of 5 "
+              f"{min(reg_ms[k]):.2f} ms, median {np.median(reg_ms[k]):.2f}; "
+              f"pyramid span host {p['host_ms']:.2f} / device busy "
+              f"{p['device_busy_ms']:.2f} ms for {p['flops'] / 1e9:.1f} GFLOP "
+              f"of matmul (floor {p['floor_ms']:.3f} ms at "
+              f"{H100_SXM.fp32_tflops:g} TFLOP/s, {p['tflops']:.2f} TFLOP/s "
+              f"of busy time), idle share {p['idle_share']:.3f} [{card}]")
+
+    vt = torch.as_tensor(vol512).to(dev)
+    dense_settings = {"committed": conv.BANDED_MIN_N, "dense": SENTINEL}
+    d_ms = {k: [] for k in dense_settings}
+    d_peak = {}
+    outs = {}
+    for k, n in dense_settings.items():
+        with banded_min_n(n):
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+            base = torch.cuda.memory_allocated(dev)
+            torch.cuda.reset_peak_memory_stats(dev)
+            outs[k] = fdense.extract_dense_descriptors(vt, RAW_UNITS, params)
+            torch.cuda.synchronize()
+            d_peak[k] = torch.cuda.max_memory_allocated(dev) - base
+    forms_dev = (outs["committed"] - outs["dense"]).abs().max().item()
+    del outs
+    assert forms_dev <= DESC_TOL, forms_dev
+    for _ in range(5):
+        for k, n in dense_settings.items():
+            with banded_min_n(n):
+                o, ms = event_ms(lambda: fdense.extract_dense_descriptors(
+                    vt, RAW_UNITS, params))
+                del o
+                d_ms[k].append(ms)
+    del vt
+    torch.cuda.empty_cache()
+    n512 = vol512.shape[0]
+    for k in dense_settings:
+        blur = "framed" if n512 >= dense_settings[k] else "dense"
+        print(f"dense {n512}^3 (config 3) {k} ({blur} blur): min of 5 "
+              f"{min(d_ms[k]):.2f} ms by events, median "
+              f"{np.median(d_ms[k]):.2f}, peak {d_peak[k] / 2**30:.2f} GiB "
+              f"above its input [{card}]")
+    print(f"dense {n512}^3 committed vs dense blur: max |dev| {forms_dev:.3e} "
+          f"(tolerance {DESC_TOL})")
+    return dict(rows=rows, composed=composed,
+                pick=dict(banded_min_n=rule[0], frame_tile=rule[1]),
+                detection=cmp_, register_framed=dict(ok=ok, A=res.A.tolist()),
+                register_ms=reg_ms, pyramid=pyr_stage, dense_ms=d_ms,
+                dense_peak_bytes=d_peak, dense_forms_dev=forms_dev)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         log("chip_smoke: no CUDA device available")
@@ -2215,7 +2466,7 @@ def main() -> int:
     # dense descriptors (config 3 at 512^3, the rotate variant), TPS
     # registration and the dense CLI.
     f1 = check_f1(dev, params.corner_thresh)
-    dense = dense_phase(src, dev)
+    dense, vol512 = dense_phase(src, dev)
     rot = rotate_phase(dev, params.corner_thresh)
     tps = tps_phase(src, ref, dev)
     detail.update(f1=f1, dense=dense, rotate=rot, tps=tps)
@@ -2240,6 +2491,15 @@ def main() -> int:
     mesh_s = time.perf_counter() - t0
     print(f"phase 10: {mesh_s:.1f} s")
     detail.update(mesh=dict(mesh10, phase_s=mesh_s))
+
+    # 11. This slice: the convolution's form set by measurement, and the
+    # paths it reaches with the form forced.
+    t0 = time.perf_counter()
+    banded = banded_phase(dev, src, ref, plan, params, vol512)
+    del vol512
+    banded_s = time.perf_counter() - t0
+    print(f"phase 11: {banded_s:.1f} s")
+    detail.update(banded=dict(banded, phase_s=banded_s))
 
     log("detail: " + json.dumps(detail))
 

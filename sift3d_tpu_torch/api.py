@@ -202,12 +202,13 @@ def descriptors_from_rows(rows, capacity: int | None = None,
 
 
 def match_descriptors(d1: Descriptors, d2: Descriptors,
-                      nn_thresh: float = MatchParams().nn_thresh
-                      ) -> np.ndarray:
+                      nn_thresh: float = MatchParams().nn_thresh,
+                      ssd_dtype=torch.float32) -> np.ndarray:
     """Match two descriptor sets; returns (N1,) int32 indices or -1
-    (SIFT3D_nn_match, sift.c:2840-2888)."""
+    (SIFT3D_nn_match, sift.c:2840-2888). ``ssd_dtype``: the SSD's
+    precision (the reference accumulates in float64)."""
     return match_mod.nn_match(d1.vec, d2.vec, nn_thresh, d1.valid_mask(),
-                              d2.valid_mask()).cpu().numpy()
+                              d2.valid_mask(), dtype=ssd_dtype).cpu().numpy()
 
 
 @dataclasses.dataclass

@@ -26,7 +26,7 @@ sift3d/sift.c:2354-2424), as ``sift3d_tpu/features/dense.py`` does:
   12-bin histogram of its window's gradients rotated by R^T.
 
 The splat, blur and postprocessing are dense tensor work (the banded
-matmul convolution of ``ops/conv.py``), as the JAX package computes them
+convolution of ``ops/conv.py``, dense or framed), as the JAX package computes them
 outside any Pallas kernel. The rotate mode's orientations are one
 ``orient_terms_levels`` call per ``DENSE_ORIENT_ROWS`` voxels, each voxel a
 row of one level: kernel 3 on the card. Its per-voxel window histograms,

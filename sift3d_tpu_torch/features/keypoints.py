@@ -63,6 +63,19 @@ def valid_rows(capacity: int, count, device) -> torch.Tensor:
     return torch.arange(capacity, device=device) < count[..., None]
 
 
+def concatenate(parts: list[Keypoints]) -> Keypoints:
+    """Concatenate keypoint sets of one volume each, their rows below
+    count in order, padded with zero rows to the parts' total capacity."""
+    caps = sum(p.capacity for p in parts)
+    n = sum(int(p.count) for p in parts)
+
+    def cat(f):
+        rows = torch.cat([getattr(p, f)[:int(p.count)] for p in parts])
+        pad = rows.new_zeros((caps - n,) + tuple(rows.shape[1:]))
+        return torch.cat([rows, pad])
+    return Keypoints(**{f: cat(f) for f in FIELDS}, count=n)
+
+
 def head(kp: Keypoints, n: int) -> Keypoints:
     """First ``n`` rows of a compacted keypoint set."""
     return Keypoints(**{f: getattr(kp, f)[:n] for f in FIELDS},

@@ -75,16 +75,19 @@ def _consistent(fwd_idx, fwd_ok, bwd_idx, bwd_ok):
 
 def nn_match(d1: torch.Tensor, d2: torch.Tensor, nn_thresh: float,
              valid1: torch.Tensor | None = None,
-             valid2: torch.Tensor | None = None) -> torch.Tensor:
+             valid2: torch.Tensor | None = None,
+             dtype=torch.float32) -> torch.Tensor:
     """Match descriptors d1 (..., N1, 768) against d2 (..., N2, 768).
 
     Returns (..., N1) int32: index into d2 per d1 row, or -1. ``valid1`` /
-    ``valid2`` (..., N1) / (..., N2) mark real (non-padding) rows.
+    ``valid2`` (..., N1) / (..., N2) mark real (non-padding) rows;
+    ``dtype`` is the SSD's precision (``ssd_matrix``), and the ratio test
+    runs in it too.
     """
     if d1.shape[-2] == 0 or d2.shape[-2] == 0:
         return torch.full(d1.shape[:-1], -1, dtype=torch.int32,
                           device=d1.device)
-    D = ssd_matrix(d1, d2)
+    D = ssd_matrix(d1, d2, dtype)
     inf = float("inf")
     if valid2 is not None:
         D = torch.where(valid2[..., None, :], D, inf)

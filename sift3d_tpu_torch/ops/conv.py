@@ -8,8 +8,17 @@ imutil.c:3459-3544).
 
 That operation is linear in the input, so each 1-D pass is exactly a
 banded n x n matrix applied along one axis. The matrix is built on the
-host (numpy, copied from ``sift3d_tpu/ops/conv.py``) and applied as
-one fp32 ``torch.matmul`` per axis, in x, then y, then z order.
+host (numpy, copied from ``sift3d_tpu/ops/conv.py``) and applied per
+axis, in x, then y, then z order, in one of two fp32 forms:
+
+- dense (``conv_axis``): one ``torch.matmul`` with the whole matrix,
+  n MACs a voxel on an axis of length n;
+- framed (``conv_axis_banded``, ``apply_banded_matrix``): the matrix cut
+  into tiles of ``FRAME_TILE`` output rows, each applied to its frame of
+  T + 2H padded input samples, T + 2H MACs a voxel whatever n is.
+
+``conv_sep`` takes the framed form on axes of at least ``BANDED_MIN_N``
+voxels.
 """
 
 from __future__ import annotations
@@ -18,6 +27,7 @@ import functools
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from ..config import CONV_EPS
 
@@ -80,6 +90,14 @@ def _make_conv_matrix(taps: np.ndarray, unit: float, unit_dim: float,
     return W.astype(np.float32)
 
 
+def unit_half_width(taps_len: int, unit: float, unit_dim: float) -> int:
+    """Half-width of the convolution's input footprint in voxels
+    (imutil.c:2288-2289)."""
+    hw = (taps_len - 1) // 2
+    uf = np.float32(unit / unit_dim)
+    return int(np.ceil(np.float32(hw) * uf))
+
+
 def conv_axis(vol: torch.Tensor, W, axis: int) -> torch.Tensor:
     """Apply a 1-D operator along ``axis`` of ``vol``:
     out[..., i, ...] = sum_j W[i, j] vol[..., j, ...], one fp32 matmul.
@@ -97,14 +115,147 @@ def conv_axis(vol: torch.Tensor, W, axis: int) -> torch.Tensor:
                                       shape[axis + 1:])
 
 
+# Axis length from which ``conv_sep`` and ``pyramid.apply_sep_ops`` take
+# the framed form: the least measured n from which the framed form's min
+# of 5 is at most 95% of the dense matmul's, at that n and at every larger
+# measured n, on all three axes, for the pyramid's widest and narrowest
+# octave-0 taps and the dense blur's (scripts/conv_banded_ab.py, run by
+# chip_smoke.py phase 11, which asserts this choice). Measured on an
+# NVIDIA H100 80GB HBM3 at 700 W, n in {128, 192, 256, 384, 512}, fp32
+# without TF32, framed at T = 64 over dense in two runs: 0.75-1.43 at
+# n = 256 (the x axis loses), 0.46-0.65 at 384, 0.32-0.42 at 512. So the
+# 512^3 dense descriptors' blur is framed, while the 256^3 pyramid and
+# the 64^3 batches stay dense.
+BANDED_MIN_N = 384
+
+# Output rows per frame tile. A tile costs T + 2H MACs an output voxel
+# against the dense form's n. T = 64 was at most 0.88 of T = 128's time
+# at every n, axis and tap set where the framed form is chosen (same run;
+# T = 256 was slower than both), so it replaces 128 by the same 5% rule.
+FRAME_TILE = 64
+
+
+def band_half_width(W: np.ndarray) -> int:
+    """Max |col - row| over the nonzeros of a square banded matrix."""
+    rows, cols = np.nonzero(W)
+    return int(np.abs(cols - rows).max()) if len(rows) else 0
+
+
+def banded_frame_tiles(W: np.ndarray, tile: int | None = None):
+    """Cut a square banded matrix into per-tile weight blocks of ``tile``
+    output rows (``FRAME_TILE`` when None).
+
+    Returns (H, tiles) with tiles (ntiles, T, T + 2H) float32 such that
+    ``(W @ x)[t*T : (t+1)*T] == tiles[t] @ xp[t*T : t*T + T + 2H]`` where
+    ``xp`` is x zero-padded by H low and H + (n_pad - n) high. Exact: the
+    boundary tiles carry W's mirror rows; the interior tiles are one
+    Toeplitz block."""
+    n = W.shape[0]
+    H = band_half_width(W)
+    T = min(FRAME_TILE if tile is None else tile, n)
+    ntiles = -(-n // T)
+    n_pad = ntiles * T
+    Wp = np.zeros((n_pad, n_pad + 2 * H), np.float32)
+    Wp[:n, H:H + n] = W
+    tiles = np.stack([Wp[t * T:(t + 1) * T, t * T:t * T + T + 2 * H]
+                      for t in range(ntiles)])
+    return H, tiles
+
+
+def _frame(v: torch.Tensor, lo: int, K: int) -> torch.Tensor:
+    """Samples [lo, lo + K) of the middle axis of ``v`` (lead, n, trail),
+    zeros outside [0, n): a view where the frame lies inside the axis, a
+    small padded copy at its ends."""
+    n = v.shape[1]
+    a, b = max(lo, 0), min(lo + K, n)
+    if a == lo and b == lo + K:
+        return v[:, a:b]
+    return F.pad(v[:, a:b], (0, 0, a - lo, lo + K - b))
+
+
+def _apply_frame_tiles(vol: torch.Tensor, H: int, tiles: np.ndarray,
+                       axis: int) -> torch.Tensor:
+    """Apply a banded operator in (H, tiles) form along ``axis``.
+
+    Tile t's output rows [t T, t T + T) are its (T, K) weights (K = T +
+    2H) times its frame, input samples [t T - H, t T - H + K) with zeros
+    outside the axis (``banded_frame_tiles``' padding). A frame inside the
+    axis is a strided view of the input; only the end tiles copy theirs.
+    One product a tile writes its rows of the output in place: a plain
+    matmul along the last axis, a matmul a leading plane when there are
+    fewer planes than tiles, else a matmul batched over the planes. fp32,
+    T + 2H MACs an output voxel; the output is the only full-size
+    temporary."""
+    axis = axis % vol.ndim
+    shape = vol.shape
+    n = shape[axis]
+    ntiles, T, K = tiles.shape
+    lead = int(np.prod(shape[:axis], dtype=np.int64))
+    trail = int(np.prod(shape[axis + 1:], dtype=np.int64))
+    v = vol.reshape(lead, n, trail)
+    Wt = torch.as_tensor(tiles, dtype=vol.dtype, device=vol.device)
+    out = torch.empty((lead, n, trail), dtype=vol.dtype, device=vol.device)
+    for t in range(ntiles):
+        r = min(T, n - t * T)              # the last tile's rows inside n
+        x = _frame(v, t * T - H, K)
+        o = out[:, t * T:t * T + r]
+        if trail == 1:
+            torch.mm(x[..., 0], Wt[t, :r].T, out=o[..., 0])
+        elif lead < ntiles:
+            for i in range(lead):
+                torch.mm(Wt[t, :r], x[i], out=o[i])
+        else:
+            torch.bmm(Wt[t, :r].expand(lead, r, K), x, out=o)
+    return out.reshape(shape)
+
+
+def apply_banded_matrix(vol: torch.Tensor, W: np.ndarray,
+                        axis: int) -> torch.Tensor:
+    """Apply a square banded matrix (host numpy) along ``axis`` in the
+    framed form; the dense matmul when the band is so wide (e.g. heavily
+    composed pyramid operators) that framing would not cut the work a
+    voxel."""
+    W = np.asarray(W, np.float32)
+    n = W.shape[0]
+    H = band_half_width(W)
+    if min(FRAME_TILE, n) + 2 * H >= n:
+        return conv_axis(vol, W, axis)
+    H, tiles = banded_frame_tiles(W)
+    return _apply_frame_tiles(vol, H, tiles, axis)
+
+
+@functools.lru_cache(maxsize=None)
+def _frame_tiles_cached(taps_key, unit: float, unit_dim: float, n: int,
+                        tile: int):
+    return banded_frame_tiles(
+        _conv_matrix_cached(taps_key, unit, unit_dim, n), tile)
+
+
+def conv_axis_banded(vol: torch.Tensor, taps: np.ndarray, unit: float,
+                     unit_dim: float, axis: int) -> torch.Tensor:
+    """``conv_axis`` with ``conv_matrix(taps, unit, unit_dim, n)`` (the
+    same matrix, mirror rows and mm-unit interpolated taps included) in
+    the framed form: T + 2H MACs a voxel instead of n."""
+    n = vol.shape[axis % vol.ndim]
+    H, tiles = _frame_tiles_cached(
+        tuple(np.asarray(taps, np.float32).tolist()),
+        float(unit), float(unit_dim), int(n), FRAME_TILE)
+    return _apply_frame_tiles(vol, H, tiles, axis)
+
+
 def conv_sep(vol: torch.Tensor, taps: np.ndarray, unit: float,
              units: tuple[float, float, float]) -> torch.Tensor:
     """Full separable pass over a (z, y, x)-ordered volume.
 
     Matches apply_Sep_FIR_filter's dimension order x, then y, then z
-    (imutil.c:3494-3526). ``units`` is (ux, uy, uz)."""
+    (imutil.c:3494-3526). ``units`` is (ux, uy, uz). Axes of at least
+    ``BANDED_MIN_N`` voxels take the framed form, shorter ones the dense
+    matmul."""
     dims = (vol.ndim - 1, vol.ndim - 2, vol.ndim - 3)
     for axis, u in zip(dims, units):
-        vol = conv_axis(vol, conv_matrix(taps, unit, u, vol.shape[axis]),
-                        axis)
+        n = vol.shape[axis]
+        if n >= BANDED_MIN_N:
+            vol = conv_axis_banded(vol, taps, unit, u, axis)
+        else:
+            vol = conv_axis(vol, conv_matrix(taps, unit, u, n), axis)
     return vol

@@ -39,3 +39,8 @@ def incremental_sigma(s_cur: float, s_next: float) -> float:
     if s_cur > s_next:
         raise ValueError(f"s_cur ({s_cur}) > s_next ({s_next})")
     return math.sqrt(s_next * s_next - s_cur * s_cur)
+
+
+def incremental_taps(s_cur: float, s_next: float) -> np.ndarray:
+    """Taps of the filter taking scale s_cur to s_next."""
+    return gauss_taps(incremental_sigma(s_cur, s_next))

@@ -18,8 +18,8 @@ The plan (shapes, scales, filter taps) is numpy on the host; the levels
 are torch tensors on the input's device. A level is (nz, ny, nx) for one
 volume or (B, nz, ny, nx) for a batch of volumes of one shape (the
 non-sharded branch of ``build_gpyr_batched``,
-``sift3d_tpu/parallel/pipeline.py``): every blur is one fp32 matmul per
-axis over the whole batch.
+``sift3d_tpu/parallel/pipeline.py``): every blur is one fp32 pass per
+axis over the whole batch, dense or framed (``ops/conv.conv_sep``).
 """
 
 from __future__ import annotations
@@ -82,6 +82,18 @@ class PyramidPlan:
                          level_scale(o, s, self.params.sigma0,
                                      self.params.num_kp_levels))
 
+    def gpyr_levels(self):
+        """Every Gaussian level's geometry, octave by octave."""
+        for o in range(self.num_octaves):
+            for s in range(self.first_level, self.last_gpyr_level + 1):
+                yield self.gpyr_level(o, s)
+
+    def dog_levels(self):
+        """Every DoG level's geometry (that of its Gaussian level)."""
+        for o in range(self.num_octaves):
+            for s in range(self.first_level, self.last_dog_level + 1):
+                yield self.gpyr_level(o, s)
+
     def first_gauss_taps(self) -> np.ndarray:
         """Filter from sigma_n to scale(first_octave, first_level)."""
         p = self.params
@@ -116,6 +128,14 @@ def plan_pyramid(dims: tuple[int, int, int],
         dims=tuple(dims), units=tuple(float(u) for u in units), params=params,
         num_octaves=num_octaves, first_level=-1,
         num_gpyr_levels=num_gpyr_levels, num_dog_levels=num_dog_levels)
+
+
+class Pyramid(dict):
+    """A pyramid is a dict {(o, s): tensor(z, y, x)} plus its plan."""
+
+    def __init__(self, plan: PyramidPlan, levels: dict):
+        super().__init__(levels)
+        self.plan = plan
 
 
 def im_scale(vol: torch.Tensor) -> torch.Tensor:
@@ -203,13 +223,24 @@ def composed_pyramid_operators(plan: PyramidPlan):
     return seed_ops, level_ops
 
 
+def _apply_axis_op(vol: torch.Tensor, W: np.ndarray,
+                   axis: int) -> torch.Tensor:
+    """Apply one composed per-axis operator: framed for square matrices
+    on axes of at least ``conv.BANDED_MIN_N`` voxels (``conv_sep``'s
+    crossover), the dense matmul otherwise."""
+    n_out, n_in = W.shape
+    if n_out == n_in and n_in >= conv.BANDED_MIN_N:
+        return conv.apply_banded_matrix(vol, W, axis)
+    return conv.conv_axis(vol, W, axis)
+
+
 def apply_sep_ops(vol: torch.Tensor, ops) -> torch.Tensor:
     """Apply per-axis (x, y, z) operators, x then y then z (the conv_sep
     order, imutil.c:3494-3526), to a volume or a batch."""
     Wx, Wy, Wz = ops
-    vol = conv.conv_axis(vol, Wx, -1)
-    vol = conv.conv_axis(vol, Wy, -2)
-    return conv.conv_axis(vol, Wz, -3)
+    vol = _apply_axis_op(vol, Wx, -1)
+    vol = _apply_axis_op(vol, Wy, -2)
+    return _apply_axis_op(vol, Wz, -3)
 
 
 def build_gpyr_pipelined(vol: torch.Tensor, plan: PyramidPlan,

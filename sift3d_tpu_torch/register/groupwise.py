@@ -239,15 +239,16 @@ def groupwise_solve(edges_ij, src_pts, ref_pts, counts, num_volumes: int,
                            ok=edge_ok.all() & torch.isfinite(A).all())
 
 
-def _match_edges(descriptors, edges_ij, units, match_params: MatchParams):
-    """All edges matched in one batched call on the descriptors' device.
-    Returns (src, ref, cnt): (E, K, 3) f64 matched points in mm and (E,)
-    counts."""
+def _match_edges(descriptors, edges_ij, units, match_params: MatchParams,
+                 ssd_dtype=torch.float32):
+    """All edges matched in one batched call on the descriptors' device,
+    the SSD in ``ssd_dtype``. Returns (src, ref, cnt): (E, K, 3) f64
+    matched points in mm and (E,) counts."""
     e = torch.as_tensor(edges_ij, device=descriptors.vec.device).long()
     i, j = e[:, 0], e[:, 1]
     valid = descriptors.valid_mask()
     m = nn_match(descriptors.vec[i], descriptors.vec[j],
-                 match_params.nn_thresh, valid[i], valid[j])
+                 match_params.nn_thresh, valid[i], valid[j], dtype=ssd_dtype)
     s, r, c = matches_to_coords(descriptors.xyz[i], descriptors.xyz[j], m)
     return im2mm(s, units), im2mm(r, units), c
 
@@ -267,18 +268,16 @@ def register_groupwise(descriptors, edges_ij, units,
         or ``convert.descriptors_from_numpy``.
       edges_ij: (E, 2) int array of volume index pairs to match.
       units: shared (ux, uy, uz) of all volumes.
-      ssd_dtype: the matcher's precision; only float32 (the dense
-        matcher's, and the JAX package's default).
+      ssd_dtype: the matcher's SSD precision (float32 by default, as in
+        the JAX package; float64 as the reference accumulates).
       ransac_idx: optional (E, H, 4) RANSAC hypothesis indices.
     """
-    if ssd_dtype != torch.float32:
-        raise ValueError(f"ssd_dtype={ssd_dtype}: the port matches in "
-                         "float32 only")
     if match_params is None:
         match_params = MatchParams()
     edges = _check_edges(edges_ij)
     with record_function("sift3d.match"):
-        src, ref, cnt = _match_edges(descriptors, edges, units, match_params)
+        src, ref, cnt = _match_edges(descriptors, edges, units, match_params,
+                                     ssd_dtype)
     return groupwise_solve(edges, src, ref, cnt,
                            num_volumes=int(descriptors.count.shape[0]),
                            ransac_params=ransac_params,
@@ -384,9 +383,6 @@ def register_groupwise_sharded(descriptors, edges_ij, units, mesh,
     anywhere (each rank uploads the set); ``device``: None is the card
     (and raises without one).
     """
-    if ssd_dtype != torch.float32:
-        raise ValueError(f"ssd_dtype={ssd_dtype}: the port matches in "
-                         "float32 only")
     from ..parallel.mesh import mesh_device
     if match_params is None:
         match_params = MatchParams()
@@ -402,7 +398,7 @@ def register_groupwise_sharded(descriptors, edges_ij, units, mesh,
     with record_function("sift3d.match"):
         if hi > lo:
             src, ref, cnt = _match_edges(desc, edges[lo:hi], units,
-                                         match_params)
+                                         match_params, ssd_dtype)
         else:
             src = ref = torch.zeros((0, K, 3), dtype=F64, device=dev)
             cnt = torch.zeros(0, dtype=torch.long, device=dev)

@@ -76,8 +76,8 @@ def register_pairs(desc_src: Descriptors, desc_ref: Descriptors,
                    match_params: MatchParams = MatchParams(),
                    ransac_params: RansacParams = RansacParams(),
                    ransac_idx: torch.Tensor | None = None,
-                   kp_overflow: torch.Tensor | None = None
-                   ) -> RegistrationResult:
+                   kp_overflow: torch.Tensor | None = None,
+                   ssd_dtype=torch.float32) -> RegistrationResult:
     """Register B (src, ref) descriptor pairs at once (``jax.vmap`` of
     ``register_pair`` in the JAX package's ``batch_register_pairs``).
 
@@ -85,7 +85,10 @@ def register_pairs(desc_src: Descriptors, desc_ref: Descriptors,
     counts. ``desc_src`` plays d1 (queries) and ``desc_ref`` d2 in matching
     (reg.c:271), and the fit maps ref coordinates onto src coordinates.
     ``ransac_idx`` (B, H, 4) optionally injects the RANSAC hypothesis
-    draws; ``kp_overflow`` (B,) is passed through. Returns a
+    draws; ``kp_overflow`` (B,) is passed through. ``ssd_dtype`` is the
+    dense matcher's SSD precision (``features.match.nn_match``); the
+    streamed kernel matches in fp32 whatever it is, as in the JAX
+    package. Returns a
     RegistrationResult with a leading batch axis; nothing waits on the
     host.
     """
@@ -99,7 +102,7 @@ def register_pairs(desc_src: Descriptors, desc_ref: Descriptors,
                 for a, b, m1, m2 in zip(desc_src.vec, desc_ref.vec, v1, v2)])
         else:
             matches = nn_match(desc_src.vec, desc_ref.vec, thresh,
-                               valid1=v1, valid2=v2)
+                               valid1=v1, valid2=v2, dtype=ssd_dtype)
         src_xyz, ref_xyz, n_match = matches_to_coords(
             desc_src.xyz, desc_ref.xyz, matches)
     with record_function("sift3d.ransac"):
@@ -125,14 +128,16 @@ def register_pair(desc_src: Descriptors, desc_ref: Descriptors,
                   match_params: MatchParams = MatchParams(),
                   ransac_params: RansacParams = RansacParams(),
                   ransac_idx: torch.Tensor | None = None,
-                  kp_overflow: bool = False) -> RegistrationResult:
+                  kp_overflow: bool = False,
+                  ssd_dtype=torch.float32) -> RegistrationResult:
     """Register one (src, ref) descriptor pair: ``register_pairs`` on a
     batch of one. ``ransac_idx`` (H, 4) optionally injects the RANSAC
-    hypothesis draws.
+    hypothesis draws; ``ssd_dtype`` as in ``register_pairs``.
     """
     res = register_pairs(_batch_of_one(desc_src), _batch_of_one(desc_ref),
                          src_units, ref_units, match_params, ransac_params,
-                         None if ransac_idx is None else ransac_idx[None])
+                         None if ransac_idx is None else ransac_idx[None],
+                         ssd_dtype=ssd_dtype)
     n_match, n_in, ok = torch.stack(
         [res.num_matches[0], res.num_inliers[0], res.ok[0].long()]).tolist()
     return RegistrationResult(

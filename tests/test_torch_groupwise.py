@@ -24,7 +24,8 @@ from sift3d_tpu.features.descriptor import Descriptors as JDescriptors
 from sift3d_tpu.register import groupwise as jgw
 
 from sift3d_tpu_torch import pyramid as pyr
-from sift3d_tpu_torch.config import RansacParams, SIFT3DParams
+from sift3d_tpu_torch.config import (MatchParams, RansacParams,
+                                     SIFT3DParams)
 from sift3d_tpu_torch.convert import descriptors_from_numpy
 from sift3d_tpu_torch.parallel.pipeline import batch_detect_describe
 from sift3d_tpu_torch.register import groupwise as pgw
@@ -304,7 +305,22 @@ def test_register_groupwise_own_detection_recovers_shifts():
 
 
 def test_register_groupwise_refuses_other_ssd_dtype(jax_fleet):
+    """float64 is accepted (it once raised): on this well-separated fleet
+    it gives float32's matches, flags and affines."""
     desc = descriptors_from_numpy(**jax_fleet[0])
-    with pytest.raises(ValueError, match="ssd_dtype"):
-        pgw.register_groupwise(desc, GW_EDGES, (1.0, 1.0, 1.0),
-                               ssd_dtype=torch.float64)
+    units = (1.0, 1.0, 1.0)
+    m32, m64 = (pgw._match_edges(desc, GW_EDGES, units, MatchParams(), dt)
+                for dt in (torch.float32, torch.float64))
+    for a, b in zip(m32, m64):
+        np.testing.assert_array_equal(a.numpy(), b.numpy())
+    params = RansacParams()
+    draws = _draws(params, m32[2].numpy())
+    r32, r64 = (pgw.register_groupwise(desc, GW_EDGES, units,
+                                       ransac_params=params, ssd_dtype=dt,
+                                       ransac_idx=draws)
+                for dt in (torch.float32, torch.float64))
+    assert bool(r64.ok) and bool(r32.ok)
+    np.testing.assert_array_equal(r64.edge_ok.numpy(), r32.edge_ok.numpy())
+    np.testing.assert_array_equal(r64.edge_inliers.numpy(),
+                                  r32.edge_inliers.numpy())
+    np.testing.assert_array_equal(r64.A.numpy(), r32.A.numpy())
