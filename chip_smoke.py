@@ -100,10 +100,16 @@ kernel 1's shared-memory carveout holds 4 blocks an SM, then:
    every level, ``orient_level_sharded`` / ``descrip_level_sharded`` on
    the first 64 rows of each bucket against kernels 3 / 1 (``valid``
    equal outside counted near-threshold rows, R within 2e-4, descriptors
-   within 2e-3); (b) ``nn_match_sharded(streamed=True)`` (kernel 2
+   within 2e-3), and on a batch of two (16, 12, 20) blob volumes whose
+   second is scaled by 10, ``level_extrema_sharded`` equal to
+   ``level_extrema`` volume by volume (each volume against its own DoG
+   max; the batch's shared max is shown to drop volume 0's rows);
+   (b) ``nn_match_sharded(streamed=True)`` (kernel 2
    exactly twice a call, counted) and ``nn_match_ring`` on the 256^3
    pair's sets and at 2500 x 2300, equal to ``nn_match_streamed`` and the
-   dense matcher outside near-tie rows; (c) ``batch_register_pairs(mesh=)``
+   dense matcher outside near-tie rows, and both with
+   ``dtype=torch.float64`` (the dense branch) equal to ``nn_match(...,
+   dtype=torch.float64)`` likewise; (c) ``batch_register_pairs(mesh=)``
    on the 64 config-4 pairs, counters set to 0 just before: phase 5's
    launches, no ``kp_overflow``, A within 1e-6 of phase 5's, pass rate
    >= 0.60; then ``pipelined=True`` (levels within 2e-6 of sequential,
@@ -135,7 +141,18 @@ kernel 1's shared-memory carveout holds 4 blocks an SM, then:
    busy against the pyramid's arithmetic at 67 TFLOP/s) and config 3 at
    512^3 (ms by events, peak memory) as committed, dense and framed, in
    turns, with the card's name and power limit. Phase 8's golden check
-   runs with the committed form and says which form its blur took.
+   runs with the committed form and says which form its blur took;
+12. runs the five examples (``examples/torch/*.py``) as a user does, each
+   a ``python examples/torch/<name>.py ...`` subprocess from the repo
+   root on NIfTI files under ``build/``: ``features.py`` (the keypoint
+   count of an in-process ``Sift3D().detect`` of the same file),
+   ``io.py`` (its output reads back equal), ``register.py`` (its printed
+   A inside the 5e-2 / 5-voxel contract of the shift) and
+   ``nonrigid.py`` (a warped volume of the reference's shape) on the
+   256^3 pair, ``groupwise.py`` on four 128^3 volumes rolled by known
+   shifts (every printed A inside the contract); each must exit 0, and
+   each one's wall seconds are printed with the card's name and power
+   limit.
 
 Prints the card's name and power limit, a ``{"kernels": [...]}`` line and,
 last, ``{"ok": true, "device": {...}}``. Exits non-zero, with no result,
@@ -149,6 +166,7 @@ import gzip
 import json
 import os
 import re
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -221,6 +239,17 @@ FLEET_SWEEP = (16, 64, 128, 256, 510)    # RANSAC chunks, edges
 # (tests/test_torch_parallel.py's bounds for conv and R).
 CONV_TOL = 2e-6
 SHARD_R_TOL = 2e-4
+# F3's batch: B = 2 blob volumes of (16, 12, 20) as prev / cur / nxt DoG
+# levels (seeds 1, 3, 5 + 10 b), volume 1 scaled by 10.
+F3_SHAPE = (16, 12, 20)
+F3_SCALE = 10.0
+F3_THRESH, F3_CAP = 0.1, 64
+# Phase 12: the examples (examples/torch/*.py) run as a user runs them;
+# groupwise.py on rolled copies of one 128^3 volume (z, y, x rolls).
+EXAMPLE_GW_SIZE = 128
+EXAMPLE_GW_NBLOB = 256
+EXAMPLE_GW_ROLLS = ((0, 0, 0), (2, -3, 1), (-1, 2, 3), (3, 1, -2))
+EXAMPLE_TIMEOUT = 300      # seconds an example may take
 CARD = [""]                # the card's name and power limit, once read
 
 
@@ -1445,6 +1474,36 @@ def fleet_phase(base, dev, plan4, params4, k1_times, k3_times) -> dict:
             (desc, edges, res.A))
 
 
+def blob_volume(shape_zyx, seed: int) -> np.ndarray:
+    """A smooth volume of isotropic Gaussian blobs (the CPU tests'
+    ``make_blob_volume``): max(40, voxels / 400) blobs."""
+    rng = np.random.default_rng(seed)
+    nz, ny, nx = shape_zyx
+    z, y, x = np.meshgrid(np.arange(nz), np.arange(ny), np.arange(nx),
+                          indexing="ij")
+    vol = np.zeros(shape_zyx, np.float64)
+    for _ in range(max(40, nz * ny * nx // 400)):
+        cz, cy, cx = (rng.uniform(0, nz), rng.uniform(0, ny),
+                      rng.uniform(0, nx))
+        sig = rng.uniform(1.2, 4.0)
+        amp = rng.uniform(-1.0, 1.0)
+        vol += amp * np.exp(-((z - cz) ** 2 + (y - cy) ** 2 + (x - cx) ** 2)
+                            / (2 * sig * sig))
+    return vol.astype(np.float32)
+
+
+def f3_batch(dev):
+    """prev, cur, nxt (2, 16, 12, 20) on ``dev``: volume 1 is volume 0's
+    neighbour in the batch scaled by 10, so a threshold shared by the
+    batch drops volume 0's extrema."""
+    out = []
+    for base in (1, 3, 5):
+        v = np.stack([blob_volume(F3_SHAPE, base + 10 * b) for b in (0, 1)])
+        v[1] *= F3_SCALE
+        out.append(torch.as_tensor(v, device=dev))
+    return out
+
+
 def mesh_phase(dev, src, plan, params, kp_src, d_src, d_ref, big, config4,
                phase5, fleet_state) -> dict:
     """Phase 10: the multi-GPU paths (``parallel/``, the sharded
@@ -1463,6 +1522,8 @@ def mesh_phase(dev, src, plan, params, kp_src, d_src, d_ref, big, config4,
     from sift3d_tpu_torch.config import MatchParams, RansacParams
     from sift3d_tpu_torch.features.descriptor import extract_level
     from sift3d_tpu_torch.features.detect import kp_levels, level_cap
+    from sift3d_tpu_torch.features.extrema import (extrema_mask,
+                                                   level_extrema)
     from sift3d_tpu_torch.features.match import nn_match
     from sift3d_tpu_torch.features.orientation import (
         orientations_from_tensor)
@@ -1512,6 +1573,21 @@ def mesh_phase(dev, src, plan, params, kp_src, d_src, d_ref, big, config4,
             want = ext[(o, s)]
             assert all(torch.equal(g, w) for g, w in zip(got, want)), (o, s)
             ext_rows += want[0].shape[0]
+        # F3: each volume against its own DoG max, as the one-device
+        # detector; a max shared by the batch would drop volume 0's rows.
+        f3 = f3_batch(dev)
+        rows, count, total = level_extrema_sharded(*f3, F3_THRESH, F3_CAP,
+                                                   mesh)
+        f3_one = []
+        for b in range(2):
+            zyx, c, t = level_extrema(*(v[b] for v in f3), F3_THRESH, F3_CAP)
+            assert int(count[b]) == c and int(total[b]) == t, (b, count, c)
+            assert torch.equal(rows[rows[:, 0] == b, 1:], zyx), b
+            f3_one.append(c)
+        batch_max = f3[1].abs().amax().expand(2)
+        shared = extrema_mask(*f3, F3_THRESH, dogmax=batch_max).sum(
+            (1, 2, 3)).tolist()
+        assert shared[0] < f3_one[0], (shared, f3_one)
         r_dev = 0.0
         near = n_orient = 0
         for (o, s), a in orient_args(gpyr, ext, plan, limit=N_CHECK_ROWS):
@@ -1545,12 +1621,17 @@ def mesh_phase(dev, src, plan, params, kp_src, d_src, d_ref, big, config4,
               f"conv_sep_sharded vs conv_sep max |dev| {conv_dev:.3e} "
               f"(tolerance {CONV_TOL}); level_extrema_sharded equal to "
               f"level_extrema on {len(kp_levels(plan))} levels ({ext_rows} "
-              f"rows); orient_level_sharded vs kernel 3 on {n_orient} rows: "
+              f"rows); F3 batch (2 x {F3_SHAPE}, volume 1 x {F3_SCALE:g}): "
+              f"level_extrema_sharded counts {count.tolist()} equal to "
+              f"level_extrema volume by volume {f3_one}, rows equal (a "
+              f"threshold shared by the batch would give {shared}); "
+              f"orient_level_sharded vs kernel 3 on {n_orient} rows: "
               f"valid equal except {near} near-threshold rows, R max |dev| "
               f"{r_dev:.3e} (tolerance {SHARD_R_TOL}); descrip_level_sharded "
               f"vs kernel 1 on {n_desc} rows: max |dev| {d_dev:.3e} "
               f"(tolerance {DESC_TOL})")
         out["a"] = dict(conv_dev=conv_dev, extrema_rows=ext_rows,
+                        f3_counts=f3_one, f3_shared_counts=shared,
                         orient_rows=n_orient, orient_near=near,
                         orient_r_dev=r_dev, desc_rows=n_desc, desc_dev=d_dev)
 
@@ -1578,9 +1659,30 @@ def mesh_phase(dev, src, plan, params, kp_src, d_src, d_ref, big, config4,
                                    f"{label} sharded vs dense"),
                       same_matches(a, b, va, vb, m_ring, m_dense,
                                    f"{label} ring vs dense")]
+            # F2: the dense branch and the ring in float64 against the
+            # one-device matcher in float64.
+            m64 = nn_match(a, b, thresh, va, vb, dtype=torch.float64)
+            s64 = nn_match_sharded(a, b, thresh, mesh, valid1=va, valid2=vb,
+                                   dtype=torch.float64, streamed=False)
+            r64 = nn_match_ring(a, b, thresh, mesh, valid1=va, valid2=vb,
+                                dtype=torch.float64)
+            n64 = [same_matches(a, b, va, vb, s64, m64,
+                                f"{label} sharded float64 vs nn_match "
+                                f"float64"),
+                   same_matches(a, b, va, vb, r64, m64,
+                                f"{label} ring float64 vs nn_match float64")]
+            vs32 = int((m64 != m_dense).sum())
+            print(f"phase 10 (b) {label} float64: nn_match_sharded(dtype="
+                  f"float64, streamed=False) and nn_match_ring(dtype="
+                  f"float64) against nn_match(dtype=float64): rows "
+                  f"differing {n64}; {int((m64 >= 0).sum())} matches, "
+                  f"{vs32} rows differ from float32's")
             out["b"][label] = dict(launches=launches,
                                    matches=int((m_sh >= 0).sum()),
-                                   near_tie_rows=n_diff)
+                                   near_tie_rows=n_diff,
+                                   float64_rows_differing=n64,
+                                   float64_matches=int((m64 >= 0).sum()),
+                                   float64_vs_float32_rows=vs32)
             print(f"phase 10 (b) {label} ({a.shape[0]}x{b.shape[0]}): "
                   f"nn_match_sharded(streamed=True) launched match_stream "
                   f"{launches} times, {int((m_sh >= 0).sum())} matches; rows "
@@ -1712,6 +1814,117 @@ def mesh_phase(dev, src, plan, params, kp_src, d_src, d_ref, big, config4,
         dist.destroy_process_group()
         if os.path.exists(store):
             os.remove(store)
+    return out
+
+
+def printed_affines(lines, prefix) -> list[np.ndarray]:
+    """Every 3x4 array that an example printed on the lines after a line
+    starting with ``prefix``."""
+    out = []
+    for i, line in enumerate(lines):
+        if line.startswith(prefix):
+            text = ""
+            for row in lines[i + 1:]:
+                text += " " + row
+                if row.rstrip().endswith("]]"):
+                    break
+            vals = text.replace("[", " ").replace("]", " ").split()
+            out.append(np.array([float(v) for v in vals]).reshape(3, 4))
+    return out
+
+
+def run_example(name, args) -> tuple[list[str], float]:
+    """``python examples/torch/<name>.py ARGS`` from the repo root with
+    ``PYTHONPATH`` at it, as a user runs it: its printed lines and wall
+    seconds. Fails unless it exits 0."""
+    script = os.path.join(ROOT, "examples", "torch", f"{name}.py")
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    t0 = time.perf_counter()
+    r = subprocess.run([sys.executable, script, *args], cwd=ROOT, env=env,
+                       capture_output=True, text=True,
+                       timeout=EXAMPLE_TIMEOUT)
+    wall = time.perf_counter() - t0
+    if r.returncode != 0:
+        log(r.stdout)
+        log(r.stderr)
+        raise AssertionError(f"examples/torch/{name}.py exited "
+                             f"{r.returncode}")
+    return r.stdout.splitlines(), wall
+
+
+def examples_phase(src, ref, dev) -> dict:
+    """Phase 12: the five examples as subprocesses on NIfTI files under
+    ``build/``: features.py, io.py, register.py and nonrigid.py on the
+    256^3 pair, groupwise.py on four rolled 128^3 volumes. Each must exit
+    0: features.py prints the keypoint count of an in-process
+    ``Sift3D().detect`` of the same file, io.py's output reads back equal
+    to its input, register.py's A is inside the 5e-2 / 5-voxel contract of
+    the known shift, nonrigid.py writes a volume of the reference's shape,
+    groupwise.py's A's are inside the contract of the known rolls."""
+    from benches.data import make_volume, pair_ok
+    from sift3d_tpu_torch import Sift3D
+    from sift3d_tpu_torch.io import Volume, im_read, im_write
+    card = CARD[0]
+    d = tempfile.mkdtemp(prefix="examples_", dir=os.path.join(ROOT, "build"))
+    out: dict = {"wall_s": {}}
+    wall = out["wall_s"]
+    try:
+        p = {k: os.path.join(d, f"{k}.nii") for k in ("src", "ref")}
+        im_write(p["src"], Volume(src))
+        im_write(p["ref"], Volume(ref))
+        base = make_volume((EXAMPLE_GW_SIZE,) * 3, nblob=EXAMPLE_GW_NBLOB,
+                           seed=SEED)
+        gw = []
+        for i, r in enumerate(EXAMPLE_GW_ROLLS):
+            gw.append(os.path.join(d, f"g{i}.nii"))
+            im_write(gw[-1], Volume(np.roll(base, r, (0, 1, 2))))
+
+        lines, wall["features"] = run_example("features", [p["src"]])
+        n_kp = int(Sift3D(device=dev).detect(im_read(p["src"])).count)
+        assert f"detected {n_kp} keypoints" in lines, (n_kp, lines)
+        out["features_keypoints"] = n_kp
+
+        io_out = os.path.join(d, "io_out.nii.gz")
+        lines, wall["io"] = run_example("io", [p["src"], io_out])
+        back, orig = im_read(io_out), im_read(p["src"])
+        assert np.array_equal(back.data, orig.data), "io.py round trip"
+        assert back.units == orig.units, (back.units, orig.units)
+
+        warped = os.path.join(d, "warped.nii")
+        lines, wall["register"] = run_example(
+            "register", [p["src"], p["ref"], warped])
+        A = printed_affines(lines, "affine (ref -> src voxels):")
+        assert len(A) == 1 and pair_ok(A[0]), A
+        assert im_read(warped).data.shape == ref.shape
+        out["register_A"] = A[0].tolist()
+
+        nonrigid = os.path.join(d, "nonrigid.nii")
+        lines, wall["nonrigid"] = run_example(
+            "nonrigid", [p["src"], p["ref"], nonrigid])
+        w = im_read(nonrigid).data
+        assert w.shape == ref.shape and np.isfinite(w).all(), w.shape
+        out["nonrigid_line"] = lines[-1]
+
+        lines, wall["groupwise"] = run_example("groupwise", gw)
+        A = np.stack(printed_affines(lines, "A["))
+        want = np.zeros_like(A)
+        want[:, :, :3] = np.eye(3)
+        want[:, :, 3] = -np.asarray(EXAMPLE_GW_ROLLS, np.float64)[:, ::-1]
+        lin, t = fleet_deviation(A, want)
+        assert len(A) == len(gw) and lin < 5e-2 and t < 5.0, (lin, t)
+        out["groupwise_dev"] = [lin, t]
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+    print(f"phase 12 examples/torch/*.py as subprocesses: features.py "
+          f"{n_kp} keypoints as Sift3D().detect; io.py round trip equal; "
+          f"register.py A inside the contract (translation "
+          f"{np.round(out['register_A'], 4)[:, 3].tolist()}); nonrigid.py "
+          f"\"{out['nonrigid_line']}\", warped {ref.shape}; groupwise.py on "
+          f"{len(gw)} {EXAMPLE_GW_SIZE}^3 volumes: |A - truth| linear "
+          f"{lin:.4f} translation {t:.4f}")
+    print("phase 12 wall seconds a subprocess (start, imports and file I/O "
+          "included): " + ", ".join(f"{k} {v:.2f}" for k, v in wall.items())
+          + f" [{card}]")
     return out
 
 
@@ -2500,6 +2713,14 @@ def main() -> int:
     banded_s = time.perf_counter() - t0
     print(f"phase 11: {banded_s:.1f} s")
     detail.update(banded=dict(banded, phase_s=banded_s))
+
+    # 12. This slice: the examples, run as a user runs them.
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    examples = examples_phase(src, ref, dev)
+    examples_s = time.perf_counter() - t0
+    print(f"phase 12: {examples_s:.1f} s")
+    detail.update(examples=dict(examples, phase_s=examples_s))
 
     log("detail: " + json.dumps(detail))
 

@@ -10,8 +10,10 @@ The local reduction of ``nn_match_sharded`` is the streamed matcher
 (``ops/cuda_match.match_reduce_streamed``: kernel 2 on the card, one
 launch per direction) once the local block reaches
 ``MatchParams.streamed_threshold`` entries on a CUDA tensor, or when asked
-(``streamed=True``); otherwise a dense ``ssd_matrix`` block. The ring
-(``nn_match_ring``) keeps JAX's dense block per step.
+(``streamed=True``); otherwise a dense ``ssd_matrix`` block in ``dtype``.
+The ring (``nn_match_ring``) keeps JAX's dense block per step, in
+``dtype``. Both take ``dtype`` at JAX's position and name; the streamed
+reduction ignores it, as JAX's does (kernel 2 is fp32).
 
 Cross-rank merges keep JAX's tie rule (``top_k`` takes the lower position
 on ties): the winner is the first rank, in coordinate order, whose best
@@ -34,11 +36,11 @@ def _second_of(*vals: torch.Tensor) -> torch.Tensor:
     return torch.topk(torch.cat(vals, 0), 2, dim=0, largest=False).values[1]
 
 
-def _dense_top2(d1, d2, v1, v2):
-    """Both directions' (idx, best, second) of a dense SSD block with the
-    invalid rows and columns at +inf."""
+def _dense_top2(d1, d2, v1, v2, dtype):
+    """Both directions' (idx, best, second) of a dense SSD block in
+    ``dtype`` with the invalid rows and columns at +inf."""
     inf = float("inf")
-    D = ssd_matrix(d1, d2)
+    D = ssd_matrix(d1, d2, dtype)
     D = torch.where(v2[None, :], D, inf)
     D = torch.where(v1[:, None], D, inf)
     return _top2_min(D), _top2_min(D.T)
@@ -48,7 +50,7 @@ def nn_match_sharded(d1: torch.Tensor, d2: torch.Tensor, nn_thresh: float,
                      mesh: Mesh, axis_name: str = "space",
                      valid1: torch.Tensor | None = None,
                      valid2: torch.Tensor | None = None,
-                     streamed: bool | None = None,
+                     dtype=torch.float32, streamed: bool | None = None,
                      streamed_threshold: int | None = None) -> torch.Tensor:
     """Match d1 (replicated) against d2 (its rows split over the axis).
 
@@ -56,6 +58,8 @@ def nn_match_sharded(d1: torch.Tensor, d2: torch.Tensor, nn_thresh: float,
       d1: (N1, 768), the same on every rank; d2: this rank's (N2/S, 768)
         block of rows. valid1 / valid2: row-validity masks of the same
         blocks.
+      dtype: the dense block's SSD precision (and its ratio test's);
+        ignored by the streamed reduction, which is fp32.
       streamed: run the local top-2 as the streamed reduction (kernel 2
         on the card). None: on a CUDA tensor once N1 * N2/S reaches
         ``streamed_threshold`` (``MatchParams().streamed_threshold``).
@@ -79,7 +83,7 @@ def nn_match_sharded(d1: torch.Tensor, d2: torch.Tensor, nn_thresh: float,
             d1, d2, valid1=valid1, valid2=valid2)
     else:
         (fidx, fbest, fsecond), (bidx, bbest, bsecond) = _dense_top2(
-            d1, d2, valid1, valid2)
+            d1, d2, valid1, valid2, dtype)
     # Global d2 indices of the local forward winners; gather (S, N1).
     g_best = all_gather(fbest, mesh, axis_name)
     g_second = all_gather(fsecond, mesh, axis_name)
@@ -113,7 +117,8 @@ def _merge_top2(best, second, idx, nb, ns, ni):
 def nn_match_ring(d1: torch.Tensor, d2: torch.Tensor, nn_thresh: float,
                   mesh: Mesh, axis_name: str = "space",
                   valid1: torch.Tensor | None = None,
-                  valid2: torch.Tensor | None = None) -> torch.Tensor:
+                  valid2: torch.Tensor | None = None,
+                  dtype=torch.float32) -> torch.Tensor:
     """Fully-sharded matching: BOTH sets split over the axis; d2 blocks
     move around the ring (``ring_shift``) so that no rank holds more than
     (N1 + N2)/S descriptor rows.
@@ -128,6 +133,7 @@ def nn_match_ring(d1: torch.Tensor, d2: torch.Tensor, nn_thresh: float,
     Args:
       d1, d2: this rank's (N1/S, 768) and (N2/S, 768) blocks; valid1 /
         valid2 their row masks.
+      dtype: the SSD's precision, and that of the running top-2 states.
     Returns (N1,) int32 matches (the same on every rank of the axis).
     """
     n1_loc, n2_loc = d1.shape[0], d2.shape[0]
@@ -139,16 +145,17 @@ def nn_match_ring(d1: torch.Tensor, d2: torch.Tensor, nn_thresh: float,
     if valid2 is None:
         valid2 = torch.ones(n2_loc, dtype=torch.bool, device=dev)
     inf = float("inf")
-    fwd = (torch.full((n1_loc,), inf, device=dev),
-           torch.full((n1_loc,), inf, device=dev),
+    fwd = (torch.full((n1_loc,), inf, dtype=dtype, device=dev),
+           torch.full((n1_loc,), inf, dtype=dtype, device=dev),
            torch.zeros(n1_loc, dtype=torch.long, device=dev))
-    bwd = (torch.full((n2_loc,), inf, device=dev),
-           torch.full((n2_loc,), inf, device=dev),
+    bwd = (torch.full((n2_loc,), inf, dtype=dtype, device=dev),
+           torch.full((n2_loc,), inf, dtype=dtype, device=dev),
            torch.zeros(n2_loc, dtype=torch.long, device=dev))
     blk, vblk = d2, valid2
     for t in range(n_sh):
         origin = (s - t) % n_sh              # the rank that owns this block
-        (li, lb, ls), (ti, tb, ts) = _dense_top2(d1, blk, valid1, vblk)
+        (li, lb, ls), (ti, tb, ts) = _dense_top2(d1, blk, valid1, vblk,
+                                                 dtype)
         fwd = _merge_top2(*fwd, lb, ls, li + origin * n2_loc)
         bwd = _merge_top2(*bwd, tb, ts, ti + s * n1_loc)
         # The d2 block and its accumulated backward state move on.

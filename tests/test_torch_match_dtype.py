@@ -1,32 +1,42 @@
-"""Port parity: the matchers' SSD precision (``ssd_dtype``).
+"""Port parity: the matchers' SSD precision (``ssd_dtype``, ``dtype``).
 
 ``api.match_descriptors``, ``register.pipeline.register_pair``,
 ``register.groupwise.register_groupwise`` and its sharded form take the
-SSD's dtype, as the JAX package's do. The descriptor sets below hold one
-decisive query: its SSDs to its best and second target are integers
-(exact in fp32 and float64), and ``nn_thresh`` is chosen so that the
-float64 ratio lies 4e-10 above nn_thresh^2 (rejected) while fp32, whose
-nn_thresh^2 rounds up, accepts it. float64 must then reject that row, as
-the JAX package under x64 and a numpy float64 ratio test do, and float32
-must match it, as the JAX package's float32 does.
+SSD's dtype, as the JAX package's do, and so do the sharded matchers
+``parallel.nn_match_sharded`` and ``nn_match_ring`` (``dtype``, at JAX's
+position; here at world size 1 against JAX's on a one-device mesh). The
+descriptor sets below hold one decisive query: its SSDs to its best and
+second target are integers (exact in fp32 and float64), and ``nn_thresh``
+is chosen so that the float64 ratio lies 4e-10 above nn_thresh^2
+(rejected) while fp32, whose nn_thresh^2 rounds up, accepts it. float64
+must then reject that row, as the JAX package under x64 and a numpy
+float64 ratio test do, and float32 must match it, as the JAX package's
+float32 does.
 """
+
+import inspect
 
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch.distributed as dist
 
 from sift3d_tpu.api import match_descriptors as jmatch_descriptors
 from sift3d_tpu.config import MatchParams as JMatchParams
 from sift3d_tpu.config import RansacParams as JRansacParams
 from sift3d_tpu.features.descriptor import Descriptors as JDescriptors
+from sift3d_tpu.parallel import make_mesh as jmake_mesh
+from sift3d_tpu.parallel import shard_match as jshard
 from sift3d_tpu.register import groupwise as jgw
 from sift3d_tpu.register.pipeline import register_pair as jregister_pair
 
 from sift3d_tpu_torch.api import match_descriptors
 from sift3d_tpu_torch.config import MatchParams, RansacParams
 from sift3d_tpu_torch.convert import descriptors_from_numpy
+from sift3d_tpu_torch.parallel import make_mesh
+from sift3d_tpu_torch.parallel import shard_match as pshard
 from sift3d_tpu_torch.register import groupwise as pgw
 from sift3d_tpu_torch.register.pipeline import register_pair
 
@@ -215,8 +225,6 @@ def test_register_groupwise_ssd_dtype(sets, dtype):
 def test_register_groupwise_sharded_float64_at_world_one(sets):
     """The sharded form takes float64 too, and at world size 1 equals the
     one-device call on the same draws."""
-    import torch.distributed as dist
-    from sift3d_tpu_torch.parallel import make_mesh
     src, ref, t, _ = sets
     desc = descriptors_from_numpy(**_fleet(src, ref))
     edges = np.array([(0, 1)])
@@ -236,3 +244,48 @@ def test_register_groupwise_sharded_float64_at_world_one(sets):
     assert int(got.edge_inliers[0]) == int(want.edge_inliers[0]) == N_GOOD
     np.testing.assert_allclose(got.A.numpy(), want.A.numpy(), rtol=0,
                                atol=1e-9)
+
+
+@pytest.mark.parametrize("name", ["nn_match_sharded", "nn_match_ring"])
+def test_sharded_matchers_take_dtype_at_jax_position(name):
+    """Both packages' sharded matchers name their arguments alike, in the
+    same order, so a positional call binds the same: the eighth argument
+    is ``dtype``."""
+    fns = (getattr(jshard, name), getattr(pshard, name))
+    names = [list(inspect.signature(f).parameters) for f in fns]
+    assert names[1] == names[0]
+    for f in fns:
+        bound = inspect.signature(f).bind(*range(8)).arguments
+        assert list(bound)[7] == "dtype", (f, list(bound))
+
+
+@pytest.mark.parametrize("name", ["nn_match_sharded", "nn_match_ring"])
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+def test_sharded_matchers_dtype_at_world_one(sets, name, dtype):
+    """At world size 1 (a one-rank gloo mesh) the port's sharded matchers
+    equal JAX's on a one-device mesh under x64, in each dtype; float64
+    rejects the decisive row that float32 accepts. The dense branch of
+    ``nn_match_sharded`` (the streamed one is fp32 in both packages)."""
+    src, ref, t, want64 = sets
+    kw = {"streamed": False} if name == "nn_match_sharded" else {}
+    with jax.enable_x64(True):
+        jmesh = jmake_mesh(jax.devices()[:1], data=1, space=1)
+        f = jax.jit(lambda a, b: getattr(jshard, name)(
+            a, b, t, jmesh, dtype=getattr(jnp, dtype), **kw))
+        want = np.asarray(f(jnp.asarray(src["vec"]), jnp.asarray(ref["vec"])))
+    fn = getattr(pshard, name)
+    d1, d2 = torch.as_tensor(src["vec"]), torch.as_tensor(ref["vec"])
+    tdt = getattr(torch, dtype)
+    m = make_mesh(device="cpu")
+    try:
+        got = fn(d1, d2, t, m, dtype=tdt, **kw).numpy()
+        positional = fn(d1, d2, t, m, "space", None, None, tdt).numpy()
+    finally:
+        dist.destroy_process_group()
+    np.testing.assert_array_equal(got, want)
+    np.testing.assert_array_equal(positional, got)
+    if dtype == "float64":
+        np.testing.assert_array_equal(got, want64)
+    else:
+        assert got[N_GOOD] == N_GOOD
+        np.testing.assert_array_equal(got[:N_GOOD], want64[:N_GOOD])

@@ -30,6 +30,7 @@ torch.set_num_threads(1)
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "sift3d_tpu_torch"
+EXAMPLES = ROOT / "examples" / "torch"
 
 
 def test_import_pulls_in_no_jax():
@@ -63,7 +64,8 @@ def test_import_pulls_in_no_jax():
 
 @pytest.mark.parametrize("path", sorted(
     str(p.relative_to(ROOT)) for p in
-    list(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]))
+    list(PORT.rglob("*.py")) + list(EXAMPLES.glob("*.py")) +
+    [ROOT / "chip_smoke.py"]))
 def test_sources_name_no_jax(path):
     tree = ast.parse((ROOT / path).read_text())
     for node in ast.walk(tree):
@@ -131,6 +133,23 @@ def test_entry_points_refuse_cpu_fallback(tmp_path):
     # Sift3D.dense and RegSift3D.register_tps on the CPU when asked.
     assert Sift3D(device="cpu").dense(vol).shape == (12, 16, 16, 16)
     assert RegSift3D(device="cpu").register_tps(vol, vol)[1] is None
+    # The examples refuse before they read anything; with device="cpu"
+    # they go on to read their (missing) inputs.
+    import importlib.util
+    from sift3d_tpu_torch.io import FileDoesNotExistError
+    missing = str(tmp_path / "missing.nii")
+    for name, args in (("features", (missing,)), ("io", (missing, missing)),
+                       ("register", (missing, missing, missing)),
+                       ("nonrigid", ([missing] * 3,)),
+                       ("groupwise", ([missing] * 2,))):
+        spec = importlib.util.spec_from_file_location(
+            f"example_{name}", EXAMPLES / f"{name}.py")
+        mod = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(mod)
+        with pytest.raises(RuntimeError, match="CUDA"):
+            mod.main(*args)
+        with pytest.raises(FileDoesNotExistError):
+            mod.main(*args, device="cpu")
 
 
 def _cpu_mesh():
