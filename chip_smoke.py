@@ -109,7 +109,9 @@ kernel 1's shared-memory carveout holds 4 blocks an SM, then:
    pair's sets and at 2500 x 2300, equal to ``nn_match_streamed`` and the
    dense matcher outside near-tie rows, and both with
    ``dtype=torch.float64`` (the dense branch) equal to ``nn_match(...,
-   dtype=torch.float64)`` likewise; (c) ``batch_register_pairs(mesh=)``
+   dtype=torch.float64)`` likewise; on ``decisive_sets`` (13 x 14 rows)
+   all three matchers accept the decisive row in float32 and reject it
+   in float64; (c) ``batch_register_pairs(mesh=)``
    on the 64 config-4 pairs, counters set to 0 just before: phase 5's
    launches, no ``kp_overflow``, A within 1e-6 of phase 5's, pass rate
    >= 0.60; then ``pipelined=True`` (levels within 2e-6 of sequential,
@@ -244,6 +246,13 @@ SHARD_R_TOL = 2e-4
 F3_SHAPE = (16, 12, 20)
 F3_SCALE = 10.0
 F3_THRESH, F3_CAP = 0.1, 64
+# F2's decisive sets (``decisive_sets``): DECISIVE_GOOD rows that match
+# their twins, then one query whose best and second SSDs are integers,
+# with |q|^2 DECISIVE_Q2 and second SSD DECISIVE_B.
+DECISIVE_GOOD = 12
+DECISIVE_SHIFT = np.array([2.0, -1.0, 3.0])   # src = ref + shift (x, y, z)
+DECISIVE_Q2 = 4_000_000
+DECISIVE_B = 1_000_000
 # Phase 12: the examples (examples/torch/*.py) run as a user runs them;
 # groupwise.py on rolled copies of one 128^3 volume (z, y, x rolls).
 EXAMPLE_GW_SIZE = 128
@@ -1504,6 +1513,59 @@ def f3_batch(dev):
     return out
 
 
+def decisive_ssd() -> tuple[int, float]:
+    """(A, nn_thresh): the best SSD A of the decisive query and a
+    threshold with A / DECISIVE_B - nn_thresh^2 = 4e-10 in float64
+    (reject) whose fp32 test accepts A (torch's and JAX's elementwise
+    fp32: the square, the product, the comparison)."""
+    for a in range(640_001, 641_000):
+        t = float(np.sqrt(a / DECISIVE_B - 4e-10))
+        reject64 = a > (t * t) * DECISIVE_B
+        t2 = np.float32(t) * np.float32(t)
+        accept32 = not np.float32(a) > t2 * np.float32(DECISIVE_B)
+        if reject64 and accept32:
+            return a, t
+    raise AssertionError("no decisive SSD in range")
+
+
+def _squares(n: int) -> list[int]:
+    """Integers whose squares sum to n (greedy)."""
+    out = []
+    while n:
+        k = int(np.sqrt(n))
+        out.append(k)
+        n -= k * k
+    return out
+
+
+def decisive_sets():
+    """(src, ref) numpy descriptor fields (``xyz``, ``vec``) and
+    nn_thresh: DECISIVE_GOOD rows that match their ref twins within fp32
+    rounding, then the decisive query q (src row DECISIVE_GOOD) and its
+    targets a (best, ref row DECISIVE_GOOD, placed at q's position) and b
+    (second). float64 rejects q's row and fp32 accepts it."""
+    rng = np.random.default_rng(21)
+    A, t = decisive_ssd()
+    n, half = DECISIVE_GOOD, np.arange(768) < 384
+    good = rng.random((n, 768)) * half
+    good /= np.linalg.norm(good, axis=1, keepdims=True)
+    twin = good + rng.normal(0, 1e-3, good.shape) * half
+    q = np.zeros(768)
+    q[384] = np.sqrt(DECISIVE_Q2)
+    alpha = np.zeros(768)
+    parts = _squares(A)
+    alpha[400:400 + len(parts)] = parts
+    beta = np.zeros(768)
+    beta[500] = np.sqrt(DECISIVE_B)
+    src_vec = np.vstack([good, q]).astype(np.float32)
+    ref_vec = np.vstack([twin, q + alpha, q + beta]).astype(np.float32)
+    src_xyz = rng.uniform(5, 35, (n + 1, 3))
+    ref_xyz = np.vstack([src_xyz - DECISIVE_SHIFT,
+                         rng.uniform(5, 35, (1, 3))])
+    return (dict(xyz=src_xyz, vec=src_vec), dict(xyz=ref_xyz, vec=ref_vec),
+            t)
+
+
 def mesh_phase(dev, src, plan, params, kp_src, d_src, d_ref, big, config4,
                phase5, fleet_state) -> dict:
     """Phase 10: the multi-GPU paths (``parallel/``, the sharded
@@ -1688,6 +1750,34 @@ def mesh_phase(dev, src, plan, params, kp_src, d_src, d_ref, big, config4,
                   f"{launches} times, {int((m_sh >= 0).sum())} matches; rows "
                   f"differing from nn_match_streamed / dense, and ring from "
                   f"dense, all near-ties: {n_diff}")
+        # F2 decides here: on the decisive sets float64 rejects the row
+        # that fp32 accepts, in the one-device matcher and both sharded
+        # ones.
+        src_d, ref_d, t_d = decisive_sets()
+        a, b = (torch.as_tensor(d["vec"], device=dev) for d in (src_d, ref_d))
+        va, vb = (torch.ones(x.shape[0], dtype=torch.bool, device=dev)
+                  for x in (a, b))
+        q = DECISIVE_GOOD
+        out["b_decisive"] = {}
+        for dt in (torch.float32, torch.float64):
+            name = str(dt).split(".")[-1]
+            want = list(range(q)) + [q if dt == torch.float32 else -1]
+            got = {"nn_match": nn_match(a, b, t_d, va, vb, dtype=dt),
+                   "nn_match_sharded": nn_match_sharded(
+                       a, b, t_d, mesh, valid1=va, valid2=vb, dtype=dt,
+                       streamed=False),
+                   "nn_match_ring": nn_match_ring(
+                       a, b, t_d, mesh, valid1=va, valid2=vb, dtype=dt)}
+            for fn, m in got.items():
+                assert m.tolist() == want, \
+                    f"decisive sets, {fn} {name}: {m.tolist()}, want {want}"
+            out["b_decisive"][name] = int(got["nn_match_ring"][q])
+        print(f"phase 10 (b) decisive sets ({a.shape[0]}x{b.shape[0]}, "
+              f"nn_thresh {t_d!r}): nn_match, nn_match_sharded(streamed="
+              f"False) and nn_match_ring match query {q} to "
+              f"{out['b_decisive']['float32']} in float32 and "
+              f"{out['b_decisive']['float64']} in float64, rows 0-{q - 1} "
+              f"to their twins")
         args = (big[0], big[1], thresh)
         out["b"]["sharded_ms"] = cuda_ms(
             lambda: nn_match_sharded(*args, mesh, streamed=True), 5)

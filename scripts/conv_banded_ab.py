@@ -180,11 +180,8 @@ def pick(rows, tiles=TILES) -> tuple[int, int]:
     which the framed form's min is at most GAIN of the dense form's, at
     that n and every larger measured n, on every axis and tap set, at the
     chosen tile (SENTINEL when there is none). The tile stays 128 unless
-    another's total over those rows is at most GAIN of 128's (the fastest
-    in total if several are). The tile is one constant for every framed
-    pass, so the total decides it: row by row, the closest row moved
-    between 0.93 and 1.04 of 128's time from one H100 machine to
-    another, and flipped the choice."""
+    another is at most GAIN of 128's at every such n, axis and tap set
+    (the fastest of those in total if several are)."""
     ns = sorted({r["n"] for r in rows})
 
     def n_star(T):
@@ -199,11 +196,11 @@ def pick(rows, tiles=TILES) -> tuple[int, int]:
     if first is None:
         return SENTINEL, 128
     chosen = [r for r in rows if r["n"] >= first]
-
-    def total(T):
-        return sum(r["framed"][T]["min_ms"] for r in chosen)
-    wins = [T for T in tiles if T != 128 and total(T) <= GAIN * total(128)]
-    T = min(wins, key=total) if wins else 128
+    wins = [T for T in tiles if T != 128 and all(
+        r["framed"][T]["min_ms"] <= GAIN * r["framed"][128]["min_ms"]
+        for r in chosen)]
+    T = min(wins, key=lambda T: sum(r["framed"][T]["min_ms"]
+                                    for r in chosen)) if wins else 128
     n = n_star(T)
     return (SENTINEL, 128) if n is None else (n, T)
 

@@ -188,11 +188,12 @@ def _table(framed):
     (lambda n, T, a: (0.7 if n >= 384 else 1.1) * (0.9 if T == 64 else 1),
      (384, 64)),
     # 64 is 4% slower than 128 on the z axis at 384 and 15% faster on the
-    # other rows: the total (0.88 of 128's) decides the tile.
+    # other rows: the tile moves only where it wins on every row, so 128
+    # stays although 64's total is 0.88 of 128's.
     (lambda n, T, a: (0.7 if n >= 384 else 1.1) *
      ((1.04 if (n, a) == (384, "z") else 0.85) if T == 64 and n >= 384
       else 1),
-     (384, 64)),
+     (384, 128)),
 ])
 def test_crossover_rule(framed, want):
     from scripts.conv_banded_ab import pick

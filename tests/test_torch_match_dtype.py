@@ -11,7 +11,8 @@ is chosen so that the float64 ratio lies 4e-10 above nn_thresh^2
 (rejected) while fp32, whose nn_thresh^2 rounds up, accepts it. float64
 must then reject that row, as the JAX package under x64 and a numpy
 float64 ratio test do, and float32 must match it, as the JAX package's
-float32 does.
+float32 does. The sets are ``chip_smoke.decisive_sets``, which the card
+check runs through the same matchers.
 """
 
 import inspect
@@ -40,65 +41,14 @@ from sift3d_tpu_torch.parallel import shard_match as pshard
 from sift3d_tpu_torch.register import groupwise as pgw
 from sift3d_tpu_torch.register.pipeline import register_pair
 
+from chip_smoke import DECISIVE_GOOD, DECISIVE_SHIFT, decisive_sets
 from tests.test_torch_register import jax_draws
 
 torch.set_num_threads(1)
 
-N_GOOD = 12
-SHIFT = np.array([2.0, -1.0, 3.0])     # src = ref + SHIFT (x, y, z)
+N_GOOD = DECISIVE_GOOD
+SHIFT = DECISIVE_SHIFT                 # src = ref + SHIFT (x, y, z)
 UNITS = (1.0, 1.0, 1.0)
-Q_NORM2 = 4_000_000                    # |q|^2: far from every other row
-B_SSD = 1_000_000                      # the decisive query's second SSD
-
-
-def _decisive():
-    """(A, nn_thresh): the best SSD A of the decisive query and a
-    threshold with A / B_SSD - nn_thresh^2 = 4e-10 in float64 (reject)
-    whose fp32 test accepts A (torch's and JAX's elementwise fp32: the
-    square, the product, the comparison)."""
-    for a in range(640_001, 641_000):
-        t = float(np.sqrt(a / B_SSD - 4e-10))
-        reject64 = a > (t * t) * B_SSD
-        t2 = np.float32(t) * np.float32(t)
-        accept32 = not np.float32(a) > t2 * np.float32(B_SSD)
-        if reject64 and accept32:
-            return a, t
-    raise AssertionError("no decisive SSD in range")
-
-
-def _squares(n: int) -> list[int]:
-    """Integers whose squares sum to n (greedy)."""
-    out = []
-    while n:
-        k = int(np.sqrt(n))
-        out.append(k)
-        n -= k * k
-    return out
-
-
-def _sets():
-    """(src, ref) numpy descriptor fields and nn_thresh: N_GOOD rows that
-    match their ref twins within fp32 rounding, then the decisive query
-    q (src row N_GOOD) and its targets a (best, ref row N_GOOD, placed at
-    q's position) and b (second)."""
-    rng = np.random.default_rng(21)
-    A, t = _decisive()
-    good = rng.random((N_GOOD, 768)) * (np.arange(768) < 384)
-    good /= np.linalg.norm(good, axis=1, keepdims=True)
-    twin = good + rng.normal(0, 1e-3, good.shape) * (np.arange(768) < 384)
-    q = np.zeros(768)
-    q[384] = np.sqrt(Q_NORM2)
-    alpha = np.zeros(768)
-    parts = _squares(A)
-    alpha[400:400 + len(parts)] = parts
-    beta = np.zeros(768)
-    beta[500] = np.sqrt(B_SSD)
-    src_vec = np.vstack([good, q]).astype(np.float32)
-    ref_vec = np.vstack([twin, q + alpha, q + beta]).astype(np.float32)
-    src_xyz = rng.uniform(5, 35, (N_GOOD + 1, 3))
-    ref_xyz = np.vstack([src_xyz - SHIFT, rng.uniform(5, 35, (1, 3))])
-    return (dict(xyz=src_xyz, vec=src_vec), dict(xyz=ref_xyz, vec=ref_vec),
-            t)
 
 
 def _numpy_match(d1, d2, t):
@@ -135,7 +85,7 @@ def _jax(d):
 
 @pytest.fixture(scope="module")
 def sets():
-    src, ref, t = _sets()
+    src, ref, t = decisive_sets()
     want64 = _numpy_match(src["vec"], ref["vec"], t)
     assert want64[N_GOOD] == -1
     np.testing.assert_array_equal(want64[:N_GOOD], np.arange(N_GOOD))

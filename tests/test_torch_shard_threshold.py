@@ -10,7 +10,8 @@ extrema there. On a batch whose volume 1 is scaled by 10, the port at
 world size 1 (a one-rank gloo mesh) is held to JAX's one-device detector
 volume by volume (rows, counts and totals exactly), and the input is
 checked to show the difference: JAX's sharded count of volume 0 is below
-its one-device count.
+its one-device count. The card check builds the same batch
+(``chip_smoke.f3_batch``), held here to this one.
 """
 
 import jax
@@ -27,6 +28,7 @@ from sift3d_tpu.parallel import make_mesh as jmake_mesh
 from sift3d_tpu_torch.features.extrema import level_extrema
 from sift3d_tpu_torch.parallel import level_extrema_sharded, make_mesh
 
+from chip_smoke import f3_batch
 from tests.conftest import make_blob_volume
 
 torch.set_num_threads(1)
@@ -88,3 +90,14 @@ def test_level_extrema_sharded_thresholds_each_volume(batch, jax_one_device,
     assert torch.equal(rows, p_rows) and torch.equal(count, p_count)
     assert torch.equal(total, p_total)
     assert count[0] > 0
+
+
+def test_card_check_builds_this_batch(batch):
+    """``chip_smoke.f3_batch``, the card's copy of this input (its blob
+    volumes cannot come from the conftest, which imports JAX), is this
+    batch bit for bit."""
+    got = f3_batch(torch.device("cpu"))
+    assert len(got) == len(batch)
+    for g, v in zip(got, batch):
+        assert g.dtype == torch.float32
+        np.testing.assert_array_equal(g.numpy(), v)
