@@ -1,0 +1,119 @@
+"""Keypoint detection: pyramid, DoG, extrema, orientation.
+
+A frozen copy of the port's ``features/detect.py`` (sift3d/sift.c:1609-1641)
+on a (B, nz, ny, nx) batch of volumes of one shape, less the profiler
+spans and the pipelined pyramid.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from . import extrema, orient
+from . import pyramid as pyr_mod
+from .config import F64, SIFT3DParams
+from .keypoints import Keypoints
+
+
+def kp_levels(plan):
+    """The (o, s) levels that can hold keypoints (sift.c:1086-1089)."""
+    s_start = plan.first_level + 1
+    s_end = plan.last_dog_level - 1
+    return [(o, s) for o in range(plan.num_octaves)
+            for s in range(s_start, s_end + 1)]
+
+
+def level_cap(plan, o: int, params: SIFT3DParams) -> int:
+    """Extrema capacity for one level: the user cap (per-octave when
+    ``max_kp_per_octave`` is set) clamped to the interior voxel count."""
+    nx, ny, nz = plan.octave_dims(o)
+    interior = max((nx - 2), 1) * max((ny - 2), 1) * max((nz - 2), 1)
+    cap = params.max_kp_per_level
+    if params.max_kp_per_octave:
+        per_o = params.max_kp_per_octave
+        cap = min(cap, per_o[min(o, len(per_o) - 1)])
+    return min(cap, interior)
+
+
+def detect_extrema_levels(dog: dict, plan, params: SIFT3DParams) -> dict:
+    """Stage A: DoG extrema per level -> {(o, s): (zyx, count, total)}
+    (``extrema.level_extrema``'s forms for one volume or a batch).
+
+    ``total > count`` means rows were truncated at the level's capacity
+    (the reference's keypoint slab is unbounded, so the loss is reported
+    as ``kp_overflow``, never silent)."""
+    return {(o, s): extrema.level_extrema(
+        dog[(o, s - 1)], dog[(o, s)], dog[(o, s + 1)],
+        params.peak_thresh, level_cap(plan, o, params))
+        for o, s in kp_levels(plan)}
+
+
+def keypoint_levels(gpyr: dict, extrema_levels: dict, plan):
+    """Per keypoint level, in ``kp_levels`` order, (level, extrema rows
+    (n, 4), sd, units): ``orient.assign_orientations_levels``'
+    input."""
+    return [(gpyr[(o, s)], extrema_levels[(o, s)][0],
+             plan.gpyr_level(o, s).scale, plan.octave_units(o))
+            for o, s in kp_levels(plan)]
+
+
+def orient_levels(gpyr: dict, extrema_levels: dict, plan,
+                  params: SIFT3DParams):
+    """Stage B: orientation + compaction of every level's extrema, over a
+    batch: ``gpyr`` levels (B, nz, ny, nx) and ``extrema_levels`` in the
+    batch form ((n, 4) rows (volume, z, y, x)).
+
+    One orientation launch covers every level and every volume. Returns
+    (kp, vol): the kept keypoints of all volumes in (level, volume, scan)
+    order, with count == capacity, and the (n,) volume index of each row.
+    """
+    levels = keypoint_levels(gpyr, extrema_levels, plan)
+    rows, R, valid = orient.assign_orientations_levels(
+        levels, params.corner_thresh)
+    return keypoints_from_rows(rows, R, valid,
+                               [r.shape[0] for _, r, _, _ in levels], plan)
+
+
+def keypoints_from_rows(rows, R, valid, sizes, plan):
+    """The kept keypoints of oriented extrema rows: ``rows`` (n, 4)
+    (volume, z, y, x), ``R`` (n, 3, 3) and ``valid`` (n,) of every level
+    in ``kp_levels`` order, ``sizes`` the rows of each level. Returns
+    ``orient_levels``' (kp, vol)."""
+    keep = torch.nonzero(valid).reshape(-1)      # the stage's host sync
+    # Each row's (o, s, sd), from the (levels, 4) table of (o, s, sd, rows)
+    # copied once.
+    table = torch.tensor([(o, s, plan.gpyr_level(o, s).scale, n)
+                          for (o, s), n in zip(kp_levels(plan), sizes)],
+                         dtype=F64, device=rows.device)
+    per_row = torch.repeat_interleave(table[:, :3], table[:, 3].long(), 0,
+                                      output_size=rows.shape[0])[keep]
+    rows, R = rows[keep], R[keep]
+    kp = Keypoints(x=rows[:, 3].to(F64), y=rows[:, 2].to(F64),
+                   z=rows[:, 1].to(F64), o=per_row[:, 0].to(torch.int32),
+                   s=per_row[:, 1].to(torch.int32), sd=per_row[:, 2],
+                   R=R.float(), count=int(keep.shape[0]))
+    return kp, rows[:, 0].long()
+
+
+def detect(vols, plan, params: SIFT3DParams, device):
+    """Detect keypoints in a (B, nz, ny, nx) batch of raw volumes.
+
+    Returns (gpyr, kp, vol, kp_overflow): the Gaussian pyramid, the kept
+    keypoints of every volume, each row's volume index, and the (B,) flag
+    of volumes whose extrema exceeded a level's capacity."""
+    vols = vols if torch.is_tensor(vols) else torch.as_tensor(
+        np.asarray(vols))
+    vols = vols.to(device=device, dtype=torch.float32)
+    gpyr = pyr_mod.build_gpyr(pyr_mod.im_scale(vols), plan)
+    dog = pyr_mod.build_dog(gpyr, plan)
+    ext = detect_extrema_levels(dog, plan, params)
+    kp, vol = orient_levels(gpyr, ext, plan, params)
+    return gpyr, kp, vol, overflow_flags(ext)
+
+
+def overflow_flags(extrema_levels: dict) -> torch.Tensor:
+    """(B,) flag of the volumes whose extrema exceeded a level's capacity
+    (batch-form ``extrema_levels``)."""
+    return torch.stack([total > count for _, count, total
+                        in extrema_levels.values()]).any(0)

@@ -1,0 +1,79 @@
+"""DoG extrema detection.
+
+Reproduces detect_extrema (reference sift3d/sift.c:1074-1212), as
+``sift3d_tpu/features/extrema.py`` does: per DoG level, a voxel at
+(x, y, z) in [1, n-2]^3 is a keypoint candidate iff
+
+  - |value| strictly exceeds peak_thresh * max|level|, and
+  - it is a strict maximum (or strict minimum) over its 6-neighborhood in the
+    current level plus the center voxels of the previous and next levels
+    (the default non-CUBOID_EXTREMA comparison set, sift.c:1138-1150).
+
+Candidates come out in the reference's scan order (z, then y, then x;
+immacros.h:66-69): ``torch.nonzero`` of the mask is already in that order,
+and for a (B, nz, ny, nx) batch in (volume, z, y, x) order. Each volume is
+held to its own max |DoG| (``jax.vmap(level_extrema)`` in
+``sift3d_tpu/parallel/pipeline.py``).
+"""
+
+from __future__ import annotations
+
+import torch
+
+
+def extrema_mask(prev: torch.Tensor, cur: torch.Tensor, nxt: torch.Tensor,
+                 peak_thresh: float,
+                 dogmax: torch.Tensor | None = None) -> torch.Tensor:
+    """(..., nz-2, ny-2, nx-2) bool: the interior voxels of ``cur`` that
+    are extrema, each volume against its own max |value| (or the given
+    per-volume ``dogmax``, when ``cur`` is a slab of the volume)."""
+    if dogmax is None:
+        dogmax = torch.amax(torch.abs(cur), dim=(-3, -2, -1))
+    dogmax = dogmax[..., None, None, None]
+    t = torch.as_tensor(peak_thresh, dtype=cur.dtype) * dogmax
+
+    c = cur[..., 1:-1, 1:-1, 1:-1]
+    peak_ok = (c > t) | (c < -t)
+    p_c = prev[..., 1:-1, 1:-1, 1:-1]
+    n_c = nxt[..., 1:-1, 1:-1, 1:-1]
+    is_max = (c > p_c) & (c > n_c)
+    is_min = (c < p_c) & (c < n_c)
+    for nb in (cur[..., 1:-1, 1:-1, 2:], cur[..., 1:-1, 1:-1, :-2],
+               cur[..., 1:-1, 2:, 1:-1], cur[..., 1:-1, :-2, 1:-1],
+               cur[..., :-2, 1:-1, 1:-1], cur[..., 2:, 1:-1, 1:-1]):
+        is_max &= c > nb
+        is_min &= c < nb
+    return peak_ok & (is_max | is_min)
+
+
+def level_extrema(prev: torch.Tensor, cur: torch.Tensor, nxt: torch.Tensor,
+                  peak_thresh: float, capacity: int):
+    """Find extrema on one DoG level, of one volume or of a batch.
+
+    Args:
+      prev, cur, nxt: DoG levels s-1, s, s+1, each (nz, ny, nx) or
+        (B, nz, ny, nx).
+      peak_thresh: relative threshold.
+      capacity: max keypoints returned per volume.
+
+    Returns (zyx, count, total). For one volume: zyx (count, 3) int32
+    voxel coords in scan order, count = min(total, capacity) and total, the
+    unclamped number of extrema on the level (total > capacity means rows
+    were dropped), as ints. For a batch: rows (n, 4) int32 (volume, z, y,
+    x) holding each volume's first ``capacity`` extrema in scan order, and
+    count and total as (B,) tensors. One host sync either way.
+    """
+    single = cur.ndim == 3
+    if single:
+        prev, cur, nxt = prev[None], cur[None], nxt[None]
+    mask = extrema_mask(prev, cur, nxt, peak_thresh)
+    flat = mask.reshape(mask.shape[0], -1)
+    total = flat.sum(1)
+    if capacity < flat.shape[1]:
+        # Keep each volume's first `capacity` hits in scan order.
+        flat = flat & (torch.cumsum(flat, 1, dtype=torch.int32) <= capacity)
+    rows = torch.nonzero(flat.reshape(mask.shape)).to(torch.int32)
+    rows[:, 1:] += 1
+    if single:
+        return rows[:, 1:], rows.shape[0], int(total[0])
+    return rows, torch.clamp(total, max=capacity), total
