@@ -19,7 +19,16 @@ no card they raise instead of running on the CPU. Each stage runs inside a
 descriptors and dense here, match, ransac and tps in
 ``register/pipeline``), which a
 profiler trace reads as the stage breakdown. The batched entry points
-(``parallel.pipeline``) use the same spans.
+(``parallel.pipeline``) use the same spans. Beside them (``utils/trace``):
+``sift3d.upload``, the copy of the input volumes to the device, just
+before ``sift3d.pyramid`` and outside it; and ``sift3d.sync.<stage>``,
+nested in its stage around each deliberate device-to-host read (extrema's
+``nonzero`` a level, orientation's keep, the descriptors' bucket sizes
+and per-volume padding). Process-wide counters, always on, count the
+reads (``sync.<stage>``), the blur matrices copied up
+(``conv.w_uploads``), the extrema rows (``extrema.rows``), the keypoints
+that orientation keeps (``orientation.kept``) and the calls of
+``batch_register_pairs``; ``trace.counters()`` reads them out.
 """
 
 from __future__ import annotations
@@ -44,6 +53,7 @@ from .io import im_read, im_write  # noqa: F401  (re-exported)
 from .io.volume import Volume
 from .ops.interp import im_inv_transform, im_resample
 from .register.pipeline import register_pair, register_pair_tps
+from .utils import trace
 
 
 def _as_array(im):
@@ -56,9 +66,8 @@ def _as_array(im):
 def _tensor(data, device) -> torch.Tensor:
     """A (nz, ny, nx) image on ``device``, keeping its float type."""
     t = data if torch.is_tensor(data) else torch.as_tensor(np.asarray(data))
-    if not t.is_floating_point():
-        t = t.float()
-    return t.to(device)
+    return trace.upload(t, device,
+                        None if t.is_floating_point() else torch.float32)
 
 
 def _plan(shape_zyx, units, params):

@@ -32,6 +32,7 @@ import torch
 from ..config import DESC_NUMEL, DESC_RAD_FCTR, DESC_SIG_FCTR, TRUNC_THRESH
 from ..dtypes import F64
 from ..ops.cuda_window import descrip_window
+from ..utils import trace
 from .dense import smooth_scale_raw_input
 from .detect import kp_levels, level_cap
 from .keypoints import Keypoints, valid_rows
@@ -110,9 +111,12 @@ def extract_level(level: torch.Tensor, centers_zyx: torch.Tensor,
     return postprocess(raw)
 
 
-def level_buckets(kp: Keypoints, plan):
+def level_buckets(kp: Keypoints, plan, stage: str = "descriptors"):
     """Yield ((o, s), rows) for every non-empty level bucket of ``kp``'s
-    valid rows, rows in keypoint order (one host sync for all buckets)."""
+    valid rows, rows in keypoint order, with one host sync for all
+    buckets, counted as ``stage``'s (the sizes are counted on the device:
+    ``torch.bincount`` would read its input's min and max on the host
+    first)."""
     levels = kp_levels(plan)
     per_octave = len(levels) // plan.num_octaves
     n = kp.count
@@ -123,7 +127,11 @@ def level_buckets(kp: Keypoints, plan):
     # Index into ``levels``; rows on no keypoint level go to a last bucket.
     lid = torch.where(on_level, o * per_octave + s, len(levels))
     order = torch.argsort(lid, stable=True)
-    sizes = torch.bincount(lid, minlength=len(levels) + 1).tolist()
+    sizes = torch.zeros(len(levels) + 1, dtype=torch.long,
+                        device=lid.device).index_add_(0, lid,
+                                                      torch.ones_like(lid))
+    with trace.host_read(stage):
+        sizes = sizes.tolist()
     start = 0
     for lv, size in zip(levels, sizes):
         if size:

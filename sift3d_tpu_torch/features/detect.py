@@ -14,13 +14,13 @@ is one launch for every level.
 
 from __future__ import annotations
 
-import numpy as np
 import torch
 from torch.profiler import record_function
 
 from .. import pyramid as pyr_mod
 from ..config import SIFT3DParams
 from ..dtypes import F64
+from ..utils import trace
 from . import extrema, orientation
 from .keypoints import Keypoints
 
@@ -89,7 +89,9 @@ def keypoints_from_rows(rows, R, valid, sizes, plan):
     (volume, z, y, x), ``R`` (n, 3, 3) and ``valid`` (n,) of every level
     in ``kp_levels`` order, ``sizes`` the rows of each level. Returns
     ``orient_levels``' (kp, vol)."""
-    keep = torch.nonzero(valid).reshape(-1)      # the stage's host sync
+    with trace.host_read("orientation"):
+        keep = torch.nonzero(valid).reshape(-1)
+    trace.count("orientation.kept", keep.shape[0])
     # Each row's (o, s, sd), from the (levels, 4) table of (o, s, sd, rows)
     # copied once.
     table = torch.tensor([(o, s, plan.gpyr_level(o, s).scale, n)
@@ -113,13 +115,12 @@ def detect(vols, plan, params: SIFT3DParams, device,
     {(o, s): (B, nz, ny, nx)}, ``orient_levels``' keypoints and volume
     index, and the (B,) flag of volumes whose extrema exceeded a level's
     capacity. ``pipelined`` builds the pyramid with
-    ``pyramid.build_gpyr_pipelined``. Each stage runs inside a
+    ``pyramid.build_gpyr_pipelined``. The copy to ``device`` runs in the
+    ``sift3d.upload`` span, each stage after it inside a
     ``sift3d.<stage>`` profiler span.
     """
+    vols = trace.upload(vols, device, torch.float32)
     with record_function("sift3d.pyramid"):
-        vols = vols if torch.is_tensor(vols) else torch.as_tensor(
-            np.asarray(vols))
-        vols = vols.to(device=device, dtype=torch.float32)
         build = pyr_mod.build_gpyr_pipelined if pipelined else \
             pyr_mod.build_gpyr
         gpyr = build(pyr_mod.im_scale(vols), plan)

@@ -20,6 +20,8 @@ from __future__ import annotations
 
 import torch
 
+from ..utils import trace
+
 
 def extrema_mask(prev: torch.Tensor, cur: torch.Tensor, nxt: torch.Tensor,
                  peak_thresh: float,
@@ -61,7 +63,8 @@ def level_extrema(prev: torch.Tensor, cur: torch.Tensor, nxt: torch.Tensor,
     unclamped number of extrema on the level (total > capacity means rows
     were dropped), as ints. For a batch: rows (n, 4) int32 (volume, z, y,
     x) holding each volume's first ``capacity`` extrema in scan order, and
-    count and total as (B,) tensors. One host sync either way.
+    count and total as (B,) tensors. One host sync either way, in the
+    span ``sift3d.sync.extrema``.
     """
     single = cur.ndim == 3
     if single:
@@ -72,7 +75,10 @@ def level_extrema(prev: torch.Tensor, cur: torch.Tensor, nxt: torch.Tensor,
     if capacity < flat.shape[1]:
         # Keep each volume's first `capacity` hits in scan order.
         flat = flat & (torch.cumsum(flat, 1, dtype=torch.int32) <= capacity)
-    rows = torch.nonzero(flat.reshape(mask.shape)).to(torch.int32)
+    with trace.host_read("extrema"):
+        rows = torch.nonzero(flat.reshape(mask.shape))
+    trace.count("extrema.rows", rows.shape[0])
+    rows = rows.to(torch.int32)
     rows[:, 1:] += 1
     if single:
         return rows[:, 1:], rows.shape[0], int(total[0])

@@ -154,7 +154,7 @@ def raw_keypoint_levels(smoothed: torch.Tensor, kp, plan, units):
     from .descriptor import level_buckets
 
     levels, idx = [], []
-    for (o, s), rows in level_buckets(kp, plan):
+    for (o, s), rows in level_buckets(kp, plan, "orientation"):
         zyx = torch.stack([kp.z[rows], kp.y[rows], kp.x[rows]], -1).float()
         zyx = torch.floor(zyx * float(np.float32(2.0 ** o))).long()
         vz = torch.zeros_like(zyx[:, :1])

@@ -30,6 +30,7 @@ import torch
 import torch.nn.functional as F
 
 from ..config import CONV_EPS
+from ..utils import trace
 
 
 @functools.lru_cache(maxsize=None)
@@ -102,7 +103,11 @@ def conv_axis(vol: torch.Tensor, W, axis: int) -> torch.Tensor:
     """Apply a 1-D operator along ``axis`` of ``vol``:
     out[..., i, ...] = sum_j W[i, j] vol[..., j, ...], one fp32 matmul.
     ``W`` is (n_out, n) for an axis of length n: square for a blur,
-    rectangular for a sharded block or a composed pyramid operator."""
+    rectangular for a sharded block or a composed pyramid operator. A
+    host ``W`` is copied to ``vol``'s device on every call, counted as
+    ``conv.w_uploads``."""
+    if not torch.is_tensor(W):
+        trace.count("conv.w_uploads")
     W = torch.as_tensor(W, dtype=vol.dtype, device=vol.device)
     axis = axis % vol.ndim
     if axis == vol.ndim - 1:
@@ -185,7 +190,8 @@ def _apply_frame_tiles(vol: torch.Tensor, H: int, tiles: np.ndarray,
     matmul along the last axis, a matmul a leading plane when there are
     fewer planes than tiles, else a matmul batched over the planes. fp32,
     T + 2H MACs an output voxel; the output is the only full-size
-    temporary."""
+    temporary. The host tiles are copied to ``vol``'s device on every
+    call, counted as ``conv.w_uploads``."""
     axis = axis % vol.ndim
     shape = vol.shape
     n = shape[axis]
@@ -193,6 +199,7 @@ def _apply_frame_tiles(vol: torch.Tensor, H: int, tiles: np.ndarray,
     lead = int(np.prod(shape[:axis], dtype=np.int64))
     trail = int(np.prod(shape[axis + 1:], dtype=np.int64))
     v = vol.reshape(lead, n, trail)
+    trace.count("conv.w_uploads")
     Wt = torch.as_tensor(tiles, dtype=vol.dtype, device=vol.device)
     out = torch.empty((lead, n, trail), dtype=vol.dtype, device=vol.device)
     for t in range(ntiles):

@@ -42,21 +42,31 @@ from ..features.keypoints import FIELDS, Keypoints
 from ..features.orientation import assign_orientations_level
 from ..ops import conv
 from ..register.pipeline import RegistrationResult, register_pairs
+from ..utils import trace
 from .mesh import Mesh, all_gather_cat, mesh_device, pmax
 from .shard_conv import DIMS, band_halo, conv_sep_sharded
 from .shard_extrema import level_extrema_sharded
 from .shard_windows import descrip_level_sharded, orient_level_sharded
 
 
-def _by_volume(vol: torch.Tensor, n_vols: int):
-    """Each row's place among its volume's rows (in row order), and the
-    largest number of rows of a volume."""
-    counts = torch.bincount(vol, minlength=n_vols)
+def _by_volume(vol: torch.Tensor, n_vols: int, stage: str = "descriptors"):
+    """Each row's place among its volume's rows (in row order), the rows
+    of each volume, and the largest number of rows of a volume, read on
+    the host as ``stage``'s one host sync (the rows are counted on the
+    device: ``torch.bincount`` would read its input's min and max on the
+    host first)."""
+    counts = torch.zeros(n_vols, dtype=torch.long,
+                         device=vol.device).index_add_(0, vol,
+                                                       torch.ones_like(vol))
     order = torch.argsort(vol, stable=True)
     pos = torch.empty_like(vol)
     pos[order] = torch.arange(vol.shape[0], device=vol.device) - \
         (torch.cumsum(counts, 0) - counts)[vol[order]]
-    return pos, counts, (int(counts.max()) if vol.numel() else 0)
+    K = 0
+    if vol.numel():
+        with trace.host_read(stage):
+            K = int(counts.max())
+    return pos, counts, K
 
 
 def _pad(t: torch.Tensor, vol, pos, n_vols: int, K: int) -> torch.Tensor:
@@ -195,14 +205,14 @@ def _block(vols, mesh: Mesh, sl: _Slabs, dev) -> torch.Tensor:
         idx[1 + sl.sd] = slice(mesh.s * L, (mesh.s + 1) * L)
     blk = vols[tuple(idx)]
     if not torch.is_tensor(blk):
-        blk = torch.as_tensor(np.ascontiguousarray(blk))
-    return blk.to(device=dev, dtype=torch.float32)
+        blk = np.ascontiguousarray(blk)
+    return trace.upload(blk, dev, torch.float32)
 
 
 def _rows_by_volume(rows: torch.Tensor, B: int):
     """(zyx (B, K, 3), vol, pos) of batch-form (n, 4) rows."""
     vol = rows[:, 0].long()
-    pos, _, K = _by_volume(vol, B)
+    pos, _, K = _by_volume(vol, B, "orientation")
     return _pad(rows[:, 1:], vol, pos, B, K), vol, pos
 
 
@@ -371,6 +381,7 @@ def batch_register_pairs(src_vols, ref_vols, plan, params: SIFT3DParams,
     """
     match_params.validate()
     ransac_params.validate()
+    trace.count("calls.batch_register_pairs")
     if mesh is None:
         dev = resolve_device(device)
         _, d_src, ov_src = batch_detect_describe(src_vols, plan, params, dev,

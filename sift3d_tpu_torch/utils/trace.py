@@ -8,6 +8,12 @@ first-class:
 - StageTimer: wall-clock stage timing that waits for the devices of the
   stage's results, so device work is counted, not its enqueue;
 - profiler_trace: a ``torch.profiler`` capture written as a Chrome trace;
+- host_read and upload: the ``sift3d.sync.<stage>`` and ``sift3d.upload``
+  profiler spans around the pipeline's deliberate device-to-host reads and
+  its volume uploads, beside the ``sift3d.<stage>`` spans of the stages;
+- count, counters, reset_counters: process-wide integer counters at the
+  pipeline's work boundaries, always on, each counting a value already on
+  the host (so none adds a sync);
 - stage_report: one structured dict per pipeline run (keypoint counts per
   level, match count, inlier count, residuals) - the signals a production
   registration service monitors.
@@ -18,12 +24,16 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import json
+import threading
 import time
 
 import numpy as np
 import torch
+from torch.profiler import record_function
 
 _log_fn = None
+_counters: dict[str, int] = {}
+_counters_lock = threading.Lock()
 
 
 def set_log_fn(fn) -> None:
@@ -109,6 +119,43 @@ def profiler_trace(log_dir: str):
             on_trace_ready=torch.profiler.tensorboard_trace_handler(
                 str(log_dir))) as prof:
         yield prof
+
+
+def count(name: str, n: int = 1) -> None:
+    """Add ``n`` (an int already on the host) to the counter ``name``."""
+    with _counters_lock:
+        _counters[name] = _counters.get(name, 0) + n
+
+
+def counters() -> dict[str, int]:
+    """A copy of every counter since the process started or the last
+    ``reset_counters``."""
+    with _counters_lock:
+        return dict(_counters)
+
+
+def reset_counters() -> None:
+    with _counters_lock:
+        _counters.clear()
+
+
+@contextlib.contextmanager
+def host_read(stage: str):
+    """Span ``sift3d.sync.<stage>`` around one deliberate device-to-host
+    read of the stage (the host waits there for the work queued before
+    it), counted as ``sync.<stage>``."""
+    count(f"sync.{stage}")
+    with record_function(f"sift3d.sync.{stage}"):
+        yield
+
+
+def upload(data, device, dtype=None) -> torch.Tensor:
+    """``data`` (an array or a tensor) on ``device`` as ``dtype`` (its own
+    type when None), copied inside the span ``sift3d.upload``."""
+    with record_function("sift3d.upload"):
+        t = data if torch.is_tensor(data) else torch.as_tensor(
+            np.asarray(data))
+        return t.to(device=device, dtype=dtype)
 
 
 def _numpy(x) -> np.ndarray:
