@@ -115,9 +115,10 @@ def detect(vols, plan, params: SIFT3DParams, device,
     {(o, s): (B, nz, ny, nx)}, ``orient_levels``' keypoints and volume
     index, and the (B,) flag of volumes whose extrema exceeded a level's
     capacity. ``pipelined`` builds the pyramid with
-    ``pyramid.build_gpyr_pipelined``. The copy to ``device`` runs in the
-    ``sift3d.upload`` span, each stage after it inside a
-    ``sift3d.<stage>`` profiler span.
+    ``pyramid.build_gpyr_pipelined``. The copy to ``device`` (or the wait
+    for the copy that ``trace.upload_start`` began, when ``vols`` is its
+    Pending) runs in the ``sift3d.upload`` span, each stage after it
+    inside a ``sift3d.<stage>`` profiler span.
     """
     vols = trace.upload(vols, device, torch.float32)
     with record_function("sift3d.pyramid"):

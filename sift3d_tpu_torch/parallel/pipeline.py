@@ -330,8 +330,9 @@ def batch_detect_describe(vols, plan, params: SIFT3DParams, device=None,
     """Detect + describe a batch of volumes.
 
     Args:
-      vols: (B, nz, ny, nx) raw volumes (numpy or torch), one shape, the
-        one ``plan`` was made for (``pyramid.plan_pyramid``); over a mesh,
+      vols: (B, nz, ny, nx) raw volumes (numpy or torch, or on one device
+        the Pending of ``trace.upload_start``), one shape, the one
+        ``plan`` was made for (``pyramid.plan_pyramid``); over a mesh,
         the same whole batch on every rank (B divisible by ``data``).
       params: SIFT3DParams; the level capacities bound each volume.
       device: the device to run on; None means the card (and raises
@@ -384,10 +385,21 @@ def batch_register_pairs(src_vols, ref_vols, plan, params: SIFT3DParams,
     trace.count("calls.batch_register_pairs")
     if mesh is None:
         dev = resolve_device(device)
-        _, d_src, ov_src = batch_detect_describe(src_vols, plan, params, dev,
-                                                 pipelined=pipelined)
-        _, d_ref, ov_ref = batch_detect_describe(ref_vols, plan, params, dev,
-                                                 pipelined=pipelined)
+        # Both stacks go up on the upload worker, in turn: the src side
+        # waits for its own, and the ref side's runs under the src side's
+        # detection. The call never ends while the worker reads them.
+        ups = []
+        try:
+            for vols in (src_vols, ref_vols):
+                ups.append(trace.upload_start(vols, dev, torch.float32))
+            trace.count("upload.ahead_bytes", ups[1].nbytes)
+            _, d_src, ov_src = batch_detect_describe(ups[0], plan, params,
+                                                     dev, pipelined=pipelined)
+            _, d_ref, ov_ref = batch_detect_describe(ups[1], plan, params,
+                                                     dev, pipelined=pipelined)
+        finally:
+            for up in ups:
+                up.wait()
         return register_pairs(d_src, d_ref, units, units, match_params,
                               ransac_params, kp_overflow=ov_src | ov_ref)
     dev = mesh_device(mesh, device)

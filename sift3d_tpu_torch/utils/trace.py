@@ -10,7 +10,8 @@ first-class:
 - profiler_trace: a ``torch.profiler`` capture written as a Chrome trace;
 - host_read and upload: the ``sift3d.sync.<stage>`` and ``sift3d.upload``
   profiler spans around the pipeline's deliberate device-to-host reads and
-  its volume uploads, beside the ``sift3d.<stage>`` spans of the stages;
+  its volume uploads (or the wait for an upload that ``upload_start``
+  began), beside the ``sift3d.<stage>`` spans of the stages;
 - count, counters, reset_counters: process-wide integer counters at the
   pipeline's work boundaries, always on, each counting a value already on
   the host (so none adds a sync);
@@ -30,6 +31,8 @@ import time
 import numpy as np
 import torch
 from torch.profiler import record_function
+
+from ..ops import upload as staging
 
 _log_fn = None
 _counters: dict[str, int] = {}
@@ -149,13 +152,33 @@ def host_read(stage: str):
         yield
 
 
+def _host_tensor(data, dtype) -> torch.Tensor:
+    """``data`` as a tensor (an array's memory shared), its bytes from the
+    host counted as ``upload.bytes``."""
+    t = data if torch.is_tensor(data) else torch.as_tensor(np.asarray(data))
+    count("upload.bytes", staging.host_bytes(t, dtype))
+    return t
+
+
 def upload(data, device, dtype=None) -> torch.Tensor:
     """``data`` (an array or a tensor) on ``device`` as ``dtype`` (its own
-    type when None), copied inside the span ``sift3d.upload``."""
+    type when None), inside the span ``sift3d.upload``: the copy
+    (``ops/upload.to_device``), or, where ``data`` is the Pending of
+    ``upload_start``, the caller's wait for that copy (``device`` and
+    ``dtype`` are then the Pending's own)."""
     with record_function("sift3d.upload"):
-        t = data if torch.is_tensor(data) else torch.as_tensor(
-            np.asarray(data))
-        return t.to(device=device, dtype=dtype)
+        if isinstance(data, staging.Pending):
+            return data.result()
+        return staging.to_device(_host_tensor(data, dtype), device, dtype)
+
+
+def upload_start(data, device, dtype=None) -> staging.Pending:
+    """Start ``upload``'s copy on the upload worker and return at once,
+    with no span: the worker opens none, so no device work that the
+    caller launches meanwhile is given to it. Hand the Pending to
+    ``upload`` where the tensor is needed, and ``wait()`` on it before
+    the data it reads can go."""
+    return staging.submit(_host_tensor(data, dtype), device, dtype)
 
 
 def _numpy(x) -> np.ndarray:
