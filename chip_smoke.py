@@ -17,7 +17,12 @@ kernel 1's shared-memory carveout holds 4 blocks an SM, then:
    tensor sums and the window gradient within 1e-5 of the row's largest
    |term|, and the keypoint sets that follow equal (``valid`` exact, R
    within 1e-4) except on rows whose plain eigenvalue ratio or corner
-   score lies within 1e-5 of its threshold, which are counted;
+   score lies within 1e-5 of its threshold, which are counted; and holds
+   the extrema kernels (4) against their plain version
+   (``features.extrema._scan_plain``) on every keypoint level of both
+   volumes' detections, one ``extrema_levels`` call a detection as
+   ``features.detect.detect`` makes it: rows, counts and totals equal bit
+   for bit, 3 launches (max, count, emit) and one host read a call;
 3. holds the streamed-matcher kernel (2) against its plain version, at the
    main path's arguments and at multi-tile sizes with invalid and
    duplicated rows, and against the dense matcher (best and second SSD
@@ -28,24 +33,28 @@ kernel 1's shared-memory carveout holds 4 blocks an SM, then:
    copy rolled by ``SHIFT`` voxels along x, once with the default matcher
    and once with ``MatchParams(impl="streamed")``, with the kernels' launch
    counters set to 0 just before each run and read just after (kernel 3
-   exactly once per detection: 2); both
+   exactly once per detection: 2; kernel 4 3 a detection: 6); both
    affines must meet the reference's 5e-2 / 5-voxel contract; then
    registers the first 16 config-4 pairs (64^3) one at a time and asserts
    a pass rate >= 0.60;
 5. checks kernels 3 and 1 on one level bucket of the config-4 batch, with
-   the rows of many volumes in one launch (1e-5 and 2e-3 as above), and
-   kernel 3 on every level of one side of the batch in one launch, then
-   drives the batched path, ``parallel.pipeline.batch_register_pairs``, on
-   64 config-4 pairs at ``bench.py``'s caps, counters set to 0 just before
-   and read just after: kernel 3 launches once per side (one detection of
-   all levels and volumes), kernel 1 once per non-empty level bucket of
-   each side (not once per volume), no pair reports
+   the rows of many volumes in one launch (1e-5 and 2e-3 as above),
+   kernel 3 on every level of one side of the batch in one launch, and
+   kernel 4 on every keypoint level of each side (64 volumes a call) as
+   in phase 2, then drives the batched path,
+   ``parallel.pipeline.batch_register_pairs``, on 64 config-4 pairs at
+   ``bench.py``'s caps, counters set to 0 just before and read just after:
+   kernel 3 launches once per side (one detection of all levels and
+   volumes), kernel 4 3 times a side, kernel 1 once per non-empty level
+   bucket of each side (not once per volume), no pair reports
    ``kp_overflow``, the pass rate is >= 0.60, and the first 16 pairs agree
    with the sequential results of phase 4 (``ok`` on >= 15, A within 1e-3
    where both are ok);
 6. times each kernel, its plain version and a library yardstick (kernel 3
    as ``orient_levels`` calls it, by CUDA events and alone in the
-   profiler's trace), the
+   profiler's trace; kernel 4's passes without the host read, and the
+   ``extrema_levels`` call with it, against the function's least bytes
+   and the design's own, ``cuda_extrema.scan_work``), the
    batched call (min of 5, pairs/s), and profiles one 256^3 registration
    and one batched call: each stage's ``sift3d.<stage>`` span on the host
    and the device, the device's busy time and idle share
@@ -156,9 +165,10 @@ kernel 1's shared-memory carveout holds 4 blocks an SM, then:
    each one's wall seconds are printed with the card's name and power
    limit.
 
-Prints the card's name and power limit, a ``{"kernels": [...]}`` line and,
-last, ``{"ok": true, "device": {...}}``. Exits non-zero, with no result,
-when no CUDA device is present or any check fails. Per-stage and
+Prints the card's name and power limit, a ``{"kernels": [...]}`` line
+(after phase 10, so a fault in phases 11-12 does not withhold it) and,
+last, ``{"ok": true, "device": {...}}``. Exits non-zero, with no ``ok``
+line, when no CUDA device is present or any check fails. Per-stage and
 per-bucket details go to standard error as one JSON line.
 """
 
@@ -328,6 +338,56 @@ def extrema_of(vols, plan, params, dev):
     gpyr = pyr.build_gpyr(pyr.im_scale(v), plan)
     return gpyr, detect_extrema_levels(pyr.build_dog(gpyr, plan), plan,
                                        params)
+
+
+def extrema_sets(vols, plan, params, dev):
+    """``features.extrema.extrema_levels``' levels of a (B, nz, ny, nx)
+    stack's detection, as ``features.detect.detect`` builds them."""
+    from sift3d_tpu_torch import pyramid as pyr
+    from sift3d_tpu_torch.features.detect import extrema_args
+    v = vols if torch.is_tensor(vols) else torch.as_tensor(np.asarray(vols))
+    v = v.to(device=dev, dtype=torch.float32)
+    gpyr = pyr.build_gpyr(pyr.im_scale(v), plan)
+    return extrema_args(pyr.build_dog(gpyr, plan), plan, params)
+
+
+def check_extrema(sets, peak_thresh, label) -> dict:
+    """Kernel 4 (``features.extrema.extrema_levels`` on card tensors)
+    against its plain version on the same tensors, one detection's levels
+    a call: rows, counts and totals equal bit for bit, 3 launches a group
+    of ``MAX_LEVELS`` levels (2 where no row is emitted) and one host read
+    a call. Returns the rows of each call besides the totals."""
+    from sift3d_tpu_torch.features import extrema
+    from sift3d_tpu_torch.ops import cuda_extrema
+    from sift3d_tpu_torch.utils import trace
+    rows, totals, launches = [], 0, 0
+    for levels in sets:
+        before = cuda_extrema.scan.launches
+        reads = trace.counters().get("sync.extrema", 0)
+        got = extrema.extrema_levels(levels, peak_thresh)
+        torch.cuda.synchronize()
+        n_launch = cuda_extrema.scan.launches - before
+        count, total, emit = extrema._scan_plain(levels, peak_thresh)
+        n = int(count.sum())
+        want = torch.split(emit(n), count.sum(1).tolist())
+        groups = -(-len(levels) // cuda_extrema.MAX_LEVELS)
+        assert n_launch == groups * (3 if n else 2), (label, n_launch)
+        assert trace.counters()["sync.extrema"] == reads + 1, label
+        for l, ((r, c, t), w) in enumerate(zip(got, want)):
+            assert torch.equal(c, count[l]) and torch.equal(t, total[l]), \
+                f"{label}: level {l}: counts {c} / {count[l]}, totals {t} / " \
+                f"{total[l]}"
+            assert torch.equal(r, w), f"{label}: level {l}: rows differ"
+        rows.append(n)
+        totals += int(total.sum())
+        launches += n_launch
+    n_vols = sets[0][0][1].shape[0]
+    print(f"extrema_scan {label} vs plain: {len(sets)} calls of "
+          f"{len(sets[0])} levels, {n_vols} volumes a call, {sum(rows)} rows "
+          f"({totals} before the caps), {launches} launches: rows, counts "
+          f"and totals equal bit for bit")
+    return dict(calls=len(sets), levels=sum(len(lv) for lv in sets),
+                volumes=n_vols, rows=rows, totals=totals, launches=launches)
 
 
 def orient_args(gpyr, ext, plan, limit=None):
@@ -2256,7 +2316,8 @@ def main() -> int:
     from sift3d_tpu_torch.config import MatchParams
     from sift3d_tpu_torch.features import detect as detect_mod
     from sift3d_tpu_torch.features.orientation import levels_args
-    from sift3d_tpu_torch.ops import cuda_match, cuda_orient, cuda_window
+    from sift3d_tpu_torch.ops import (cuda_extrema, cuda_match, cuda_orient,
+                                      cuda_window)
     from sift3d_tpu_torch.ops.cuda_match import (reduce_one_way,
                                                  reduce_one_way_plain)
     from sift3d_tpu_torch.parallel.pipeline import (batch_detect_describe,
@@ -2309,6 +2370,8 @@ def main() -> int:
                                           "256^3")
     kp_ref, d_ref = s3d.detect_and_extract(ref)
     k1_args += level_args(s3d._gpyr, plan, kp_ref)
+    k4_sets = [extrema_sets(v[None], plan, params, dev) for v in (src, ref)]
+    k4_check = check_extrema(k4_sets, params.peak_thresh, "256^3")
 
     # 3. Kernel 2 against its plain version (at the main path's arguments
     # and at multi-tile sizes) and against the dense matcher.
@@ -2322,22 +2385,27 @@ def main() -> int:
         cuda_window.descrip_window.launches = 0
         cuda_match.reduce_one_way.launches = 0
         cuda_orient.orient_terms_levels.launches = 0
+        cuda_extrema.scan.launches = 0
         res = r.register(src, ref)
         torch.cuda.synchronize()
         counts = (cuda_window.descrip_window.launches,
                   cuda_match.reduce_one_way.launches,
                   cuda_orient.orient_terms_levels.launches)
+        k4_launches = cuda_extrema.scan.launches
         ok = bool(res.ok and pair_ok(res.A) and not res.kp_overflow)
         print(f"register {SIZE}^3 ({label} matcher): ok={ok}, "
               f"matches {len(res.match_src)}, inliers {res.num_inliers}, "
               f"launches descrip_window {counts[0]} match_stream "
-              f"{counts[1]} orient_window {counts[2]}, "
-              f"A={np.round(res.A, 4).tolist()}")
+              f"{counts[1]} orient_window {counts[2]} extrema_scan "
+              f"{k4_launches}, A={np.round(res.A, 4).tolist()}")
         assert ok, f"{SIZE}^3 pair outside the contract ({label})"
         assert counts[0] > 0, "descrip_window never launched"
         assert counts[2] == 2, \
             f"orient_window launched {counts[2]} times, not once per detection"
-        runs[label] = dict(counts=counts, n_matches=len(res.match_src),
+        assert k4_launches == 6, \
+            f"extrema_scan launched {k4_launches} times, not 3 a detection"
+        runs[label] = dict(counts=counts, extrema_launches=k4_launches,
+                           n_matches=len(res.match_src),
                            inliers=res.num_inliers, A=res.A.tolist())
     assert runs["streamed"]["counts"][1] > 0, "match_stream never launched"
     detail["runs"] = runs
@@ -2388,11 +2456,16 @@ def main() -> int:
     n_vols1 = int(fullest1[1][9].unique().numel())
     worst1_batch = check_descrip_window([fullest1],
                                         f"config-4 batch, {n_vols1} volumes")
+    k4_batch_sets = [extrema_sets(v, plan4, params4, dev)
+                     for v in (src4, ref4)]
+    k4_batch_check = check_extrema(k4_batch_sets, params4.peak_thresh,
+                                   "config-4 batch, both sides")
 
     expect = [sum(side[2][i] for side in sides) for i in range(2)]
     cuda_window.descrip_window.launches = 0
     cuda_orient.orient_terms_levels.launches = 0
     cuda_match.reduce_one_way.launches = 0
+    cuda_extrema.scan.launches = 0
     t0 = time.perf_counter()
     bres = batch_register_pairs(src4, ref4, plan4, params4, device=dev)
     torch.cuda.synchronize()
@@ -2400,6 +2473,7 @@ def main() -> int:
     batch_counts = (cuda_window.descrip_window.launches,
                     cuda_match.reduce_one_way.launches,
                     cuda_orient.orient_terms_levels.launches)
+    batch_k4 = cuda_extrema.scan.launches
     A4 = bres.A.cpu().numpy()
     ok4 = bres.ok.cpu().numpy()
     passed4 = ok4 & pair_ok(A4)
@@ -2410,12 +2484,13 @@ def main() -> int:
           f"{GATE_PASS_RATE}), kp_overflow on {n_over} pairs; launches "
           f"orient_window {batch_counts[2]} (detections with rows "
           f"{expect[0]}), descrip_window {batch_counts[0]} (non-empty "
-          f"{expect[1]}), match_stream {batch_counts[1]}; first call "
-          f"{first_s:.2f} s")
+          f"{expect[1]}), match_stream {batch_counts[1]}, extrema_scan "
+          f"{batch_k4}; first call {first_s:.2f} s")
     assert n_over == 0, "kp_overflow in the config-4 batch"
     assert rate4 >= GATE_PASS_RATE, rate4
     assert batch_counts[2] == expect[0], (batch_counts, expect)
     assert batch_counts[0] == expect[1], (batch_counts, expect)
+    assert batch_k4 == 6, f"extrema_scan launched {batch_k4} times, not 3 a side"
     same_ok = sum(int(ok4[b]) == int(seq[b][1]) for b in range(CONFIG4_PAIRS))
     both = [b for b in range(CONFIG4_PAIRS) if ok4[b] and seq[b][1]]
     a_dev = max((np.abs(A4[b] - seq[b][2]).max() for b in both), default=0.0)
@@ -2425,7 +2500,8 @@ def main() -> int:
     assert same_ok >= CONFIG4_PAIRS - 1, same_ok
     assert a_dev <= 1e-3, a_dev
     detail["batch"] = dict(pass_rate=rate4, counts=batch_counts,
-                           expected=expect, same_ok=same_ok, a_dev=a_dev)
+                           extrema_launches=batch_k4, expected=expect,
+                           same_ok=same_ok, a_dev=a_dev)
 
     # 6. Times (everything above was the warm-up).
     from sift3d_tpu_torch.ops.cuda_orient import (orient_terms_levels,
@@ -2497,6 +2573,45 @@ def main() -> int:
               f"events, kernel alone {fmt_ms(t['alone_ms'])}, plain "
               f"{t['plain_ms']:.3f} ms, bound {t['bound_ms']:.5f} ms "
               f"({t['bound_by']}) [{card}]")
+
+    from sift3d_tpu_torch.features.extrema import _scan_plain, extrema_levels
+
+    def k4_times(sets, rows, peak_thresh, reps):
+        least, design, ops, passing, found = work_sum(
+            lambda lv: cuda_extrema.scan_work(lv, peak_thresh),
+            [(lv,) for lv in sets])
+        b, by = bound_ms(least, ops)
+        db, dby = bound_ms(design, ops)
+        voxels = sum(lv[1].numel() for levels in sets for lv in levels)
+
+        def passes():
+            for levels, n in zip(sets, rows):
+                cuda_extrema.scan(levels, peak_thresh)[2](n)
+        return dict(
+            calls=len(sets), rows=found, pass_share=passing / voxels,
+            ms=cuda_ms(passes, reps),
+            call_ms=cuda_ms(lambda: [extrema_levels(lv, peak_thresh)
+                                     for lv in sets], reps),
+            plain_ms=cuda_ms(lambda: [_scan_plain(lv, peak_thresh)
+                                      for lv in sets], 1),
+            bound_ms=b, bound_by=by, bytes=least, design_bound_ms=db,
+            design_bound_by=dby, design_bytes=design, ops=ops)
+    k4_256 = k4_times(k4_sets, k4_check["rows"], params.peak_thresh, 5)
+    k4_batch = k4_times(k4_batch_sets, k4_batch_check["rows"],
+                        params4.peak_thresh, 5)
+    detail["extrema_scan"] = dict(
+        reg_256=k4_256, batch=k4_batch,
+        checks=dict(reg_256=k4_check, batch=k4_batch_check))
+    for label, t in (("256^3 registration", k4_256),
+                     ("config-4 batch", k4_batch)):
+        print(f"extrema_scan per {label} ({t['calls']} calls, {t['rows']} "
+              f"rows, {t['pass_share']:.4f} of the voxels pass |c| > t): "
+              f"{t['ms']:.4f} ms by events (passes), {t['call_ms']:.4f} ms "
+              f"a call with its host read, plain {t['plain_ms']:.3f} ms, "
+              f"bound {t['bound_ms']:.4f} ms ({t['bound_by']}, the least "
+              f"bytes), the design's bytes {t['design_bound_ms']:.4f} ms "
+              f"[{card}]")
+    del k4_sets, k4_batch_sets
 
     def library(q, t, qs, ts):
         D = torch.clamp(qs[:, None] + ts[None, :] - 2.0 * (q @ t.T), min=0)
@@ -2795,25 +2910,8 @@ def main() -> int:
     print(f"phase 10: {mesh_s:.1f} s")
     detail.update(mesh=dict(mesh10, phase_s=mesh_s))
 
-    # 11. This slice: the convolution's form set by measurement, and the
-    # paths it reaches with the form forced.
-    t0 = time.perf_counter()
-    banded = banded_phase(dev, src, ref, plan, params, vol512)
-    del vol512
-    banded_s = time.perf_counter() - t0
-    print(f"phase 11: {banded_s:.1f} s")
-    detail.update(banded=dict(banded, phase_s=banded_s))
-
-    # 12. This slice: the examples, run as a user runs them.
-    torch.cuda.empty_cache()
-    t0 = time.perf_counter()
-    examples = examples_phase(src, ref, dev)
-    examples_s = time.perf_counter() - t0
-    print(f"phase 12: {examples_s:.1f} s")
-    detail.update(examples=dict(examples, phase_s=examples_s))
-
-    log("detail: " + json.dumps(detail))
-
+    # The kernels line: every number it holds is in by now (phases 11 and
+    # 12 add none).
     by_path = {
         "descrip_window": dict(register_256=runs["default"]["counts"][0],
                                batch_config4=batch_counts[0],
@@ -2838,6 +2936,10 @@ def main() -> int:
             cli_dense_256=dense["cli"]["counts"][i],
             groupwise_fleet_256=fleet["counts"][i])
     by_path["match_stream"]["groupwise_fleet_256"] = 0
+    by_path["extrema_scan"] = dict(
+        register_256=runs["default"]["extrema_launches"],
+        register_256_streamed=runs["streamed"]["extrema_launches"],
+        batch_config4=batch_k4)
     for name, i in (("descrip_window", 0), ("match_stream", 1),
                     ("orient_window", 2)):
         by_path[name]["batch_config4_mesh"] = mesh10["c"]["counts"][i]
@@ -2940,9 +3042,48 @@ def main() -> int:
              fleet_bound_ms=fleet["k3"]["bound_ms"],
              fleet_bound_by=fleet["k3"]["bound_by"],
              fleet_max_rel_err=fleet["k3"]["check"]["max_rel_err"]),
+        dict(name="extrema_scan", route="cuda",
+             source="sift3d_tpu_torch/csrc/extrema_scan.cu",
+             replaces=None, launches=batch_k4, max_abs_err=0,
+             ms=k4_256["ms"], plain_ms=k4_256["plain_ms"],
+             bound_ms=k4_256["bound_ms"], bound_by=k4_256["bound_by"],
+             library_ms=None,
+             ms_for="both detections of one 256^3 registration, the passes "
+                    "without the host read",
+             launches_by_path=by_path["extrema_scan"],
+             call_ms=k4_256["call_ms"],
+             design_bound_ms=k4_256["design_bound_ms"],
+             pass_share=k4_256["pass_share"], rows=k4_256["rows"],
+             batch_ms=k4_batch["ms"], batch_call_ms=k4_batch["call_ms"],
+             batch_plain_ms=k4_batch["plain_ms"],
+             batch_bound_ms=k4_batch["bound_ms"],
+             batch_bound_by=k4_batch["bound_by"],
+             batch_design_bound_ms=k4_batch["design_bound_ms"],
+             batch_pass_share=k4_batch["pass_share"],
+             batch_rows=k4_batch["rows"]),
     ]
     print(card)
     print(json.dumps({"kernels": kernels}))
+
+    # 11. This slice: the convolution's form set by measurement, and the
+    # paths it reaches with the form forced.
+    t0 = time.perf_counter()
+    banded = banded_phase(dev, src, ref, plan, params, vol512)
+    del vol512
+    banded_s = time.perf_counter() - t0
+    print(f"phase 11: {banded_s:.1f} s")
+    detail.update(banded=dict(banded, phase_s=banded_s))
+
+    # 12. This slice: the examples, run as a user runs them.
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    examples = examples_phase(src, ref, dev)
+    examples_s = time.perf_counter() - t0
+    print(f"phase 12: {examples_s:.1f} s")
+    detail.update(examples=dict(examples, phase_s=examples_s))
+
+    log("detail: " + json.dumps(detail))
+
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -22,12 +22,14 @@ profiler trace reads as the stage breakdown. The batched entry points
 (``parallel.pipeline``) use the same spans. Beside them (``utils/trace``):
 ``sift3d.upload``, the copy of the input volumes to the device, just
 before ``sift3d.pyramid`` and outside it; and ``sift3d.sync.<stage>``,
-nested in its stage around each deliberate device-to-host read (extrema's
-``nonzero`` a level, orientation's keep, the descriptors' bucket sizes
-and per-volume padding). Process-wide counters, always on, count the
-reads (``sync.<stage>``), the blur matrices copied up
-(``conv.w_uploads``), the extrema rows (``extrema.rows``), the keypoints
-that orientation keeps (``orientation.kept``) and the calls of
+nested in its stage around each deliberate device-to-host read (the
+extrema counts of every keypoint level, orientation's keep, the
+descriptors' bucket sizes and per-volume padding). Process-wide
+counters, always on, count the reads (``sync.<stage>``), the blur
+matrices copied up (``conv.w_uploads``), the extrema rows
+(``extrema.rows``), the keypoint levels searched (``extrema.levels``)
+and those the CUDA kernels searched (``extrema.kernel_levels``), the
+keypoints that orientation keeps (``orientation.kept``) and the calls of
 ``batch_register_pairs``; ``trace.counters()`` reads them out.
 """
 

@@ -47,15 +47,21 @@ def level_cap(plan, o: int, params: SIFT3DParams) -> int:
 
 def detect_extrema_levels(dog: dict, plan, params: SIFT3DParams) -> dict:
     """Stage A: DoG extrema per level -> {(o, s): (zyx, count, total)}
-    (``extrema.level_extrema``'s forms for one volume or a batch).
+    (``extrema.level_extrema``'s forms for one volume or a batch), every
+    level in one ``extrema.extrema_levels`` call (one host read).
 
     ``total > count`` means rows were truncated at the level's capacity
     (the reference's keypoint slab is unbounded, so the loss is reported
     as ``kp_overflow``, never silent)."""
-    return {(o, s): extrema.level_extrema(
-        dog[(o, s - 1)], dog[(o, s)], dog[(o, s + 1)],
-        params.peak_thresh, level_cap(plan, o, params))
-        for o, s in kp_levels(plan)}
+    return dict(zip(kp_levels(plan), extrema.extrema_levels(
+        extrema_args(dog, plan, params), params.peak_thresh)))
+
+
+def extrema_args(dog: dict, plan, params: SIFT3DParams) -> list:
+    """``extrema.extrema_levels``' levels of a detection: (prev, cur, nxt,
+    capacity) of each keypoint level, in ``kp_levels`` order."""
+    return [(dog[(o, s - 1)], dog[(o, s)], dog[(o, s + 1)],
+             level_cap(plan, o, params)) for o, s in kp_levels(plan)]
 
 
 def keypoint_levels(gpyr: dict, extrema_levels: dict, plan):

@@ -284,17 +284,21 @@ def _sharded(vols, plan, params, mesh: Mesh, shard_dim: str, dev):
         gpyr = build_gpyr_batched(torch.where(m == 0, x, x / m), plan, mesh,
                                   shard_dim=shard_dim)
         dog = pyr_mod.build_dog(gpyr, plan)
-    ext = {}
+    ext, whole = {}, []
     with record_function("sift3d.extrema"):
         for o, s in detect_mod.kp_levels(plan):
             cap = detect_mod.level_cap(plan, o, params)
-            args = (dog[(o, s - 1)], dog[(o, s)], dog[(o, s + 1)],
-                    params.peak_thresh, cap)
+            levels = (dog[(o, s - 1)], dog[(o, s)], dog[(o, s + 1)])
             if sl.splits(plan.octave_dims(o)[2 - sl.sd]):
-                ext[(o, s)] = level_extrema_sharded(*args, mesh,
-                                                    shard_dim=shard_dim)
+                ext[(o, s)] = level_extrema_sharded(
+                    *levels, params.peak_thresh, cap, mesh,
+                    shard_dim=shard_dim)
             else:
-                ext[(o, s)] = extrema_mod.level_extrema(*args)
+                whole.append(((o, s), levels + (cap,)))
+        # The levels no slab splits: all in one call (one host read).
+        ext.update(zip([k for k, _ in whole], extrema_mod.extrema_levels(
+            [lv for _, lv in whole], params.peak_thresh)))
+    ext = {k: ext[k] for k in detect_mod.kp_levels(plan)}
     kp, desc, vol = _windows_sharded(gpyr, ext, plan, params, sl, B)
     kp_b, desc_b = _per_volume(kp, desc, vol, B)
     return kp_b, desc_b, detect_mod.overflow_flags(ext)

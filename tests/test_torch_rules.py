@@ -38,6 +38,7 @@ def test_import_pulls_in_no_jax():
             "sift3d_tpu_torch.convert, sift3d_tpu_torch.ops.cuda_match, "
             "sift3d_tpu_torch.ops.cuda_window, "
             "sift3d_tpu_torch.ops.cuda_orient, "
+            "sift3d_tpu_torch.ops.cuda_extrema, "
             "sift3d_tpu_torch.parallel.pipeline, sift3d_tpu_torch.io, "
             "sift3d_tpu_torch.io.dicom, sift3d_tpu_torch.cli.kp, "
             "sift3d_tpu_torch.cli.reg, sift3d_tpu_torch.ops.interp, "

@@ -118,9 +118,11 @@ def _sync_spans_equal_counters(r):
     counted = {f"sift3d.{k}": v for k, v in r["traced"].items()
                if k.startswith("sync.")}
     assert dict(spans) == counted
-    # A side reads once a keypoint level and once for orientation's keep.
-    assert counted["sift3d.sync.extrema"] == 2 * len(kp_levels(r["plan"]))
+    # A side reads once for the extrema of every keypoint level and once
+    # for orientation's keep.
+    assert counted["sift3d.sync.extrema"] == 2
     assert counted["sift3d.sync.orientation"] == 2
+    assert r["traced"]["extrema.levels"] == 2 * len(kp_levels(r["plan"]))
 
 
 def _w_uploads(r):
@@ -133,6 +135,8 @@ def _counters_without_profiler(r):
     assert r["untraced"] == r["traced"]
     assert r["traced"]["calls.batch_register_pairs"] == 1
     assert 0 < r["traced"]["orientation.kept"] <= r["traced"]["extrema.rows"]
+    # On the CPU the plain version finds the extrema, not the kernels.
+    assert "extrema.kernel_levels" not in r["traced"]
 
 
 CHECKS = {f.__name__.lstrip("_"): f for f in (
