@@ -19,7 +19,7 @@ kernel 1's shared-memory carveout holds 4 blocks an SM, then:
    within 1e-4) except on rows whose plain eigenvalue ratio or corner
    score lies within 1e-5 of its threshold, which are counted; and holds
    the extrema kernels (4) against their plain version
-   (``features.extrema._scan_plain``) on every keypoint level of both
+   (``cuda_extrema.scan_plain``) on every keypoint level of both
    volumes' detections, one ``extrema_levels`` call a detection as
    ``features.detect.detect`` makes it: rows, counts and totals equal bit
    for bit, 3 launches (max, count, emit) and one host read a call;
@@ -270,6 +270,8 @@ EXAMPLE_GW_NBLOB = 256
 EXAMPLE_GW_ROLLS = ((0, 0, 0), (2, -3, 1), (-1, 2, 3), (3, 1, -2))
 EXAMPLE_TIMEOUT = 300      # seconds an example may take
 CARD = [""]                # the card's name and power limit, once read
+# Kernels 1, 2 and 3 by source, the order of the launch counts printed.
+KERNELS_1_2_3 = ("descrip_window", "match_stream", "orient_window")
 
 
 def log(*a):
@@ -360,14 +362,14 @@ def check_extrema(sets, peak_thresh, label) -> dict:
     from sift3d_tpu_torch.features import extrema
     from sift3d_tpu_torch.ops import cuda_extrema
     from sift3d_tpu_torch.utils import trace
-    rows, totals, launches = [], 0, 0
+    rows, totals, n_launches = [], 0, 0
     for levels in sets:
-        before = cuda_extrema.scan.launches
+        before = launches("extrema_scan")
         reads = trace.counters().get("sync.extrema", 0)
         got = extrema.extrema_levels(levels, peak_thresh)
         torch.cuda.synchronize()
-        n_launch = cuda_extrema.scan.launches - before
-        count, total, emit = extrema._scan_plain(levels, peak_thresh)
+        n_launch = launches("extrema_scan") - before
+        count, total, emit = cuda_extrema.scan_plain(levels, peak_thresh)
         n = int(count.sum())
         want = torch.split(emit(n), count.sum(1).tolist())
         groups = -(-len(levels) // cuda_extrema.MAX_LEVELS)
@@ -380,14 +382,14 @@ def check_extrema(sets, peak_thresh, label) -> dict:
             assert torch.equal(r, w), f"{label}: level {l}: rows differ"
         rows.append(n)
         totals += int(total.sum())
-        launches += n_launch
+        n_launches += n_launch
     n_vols = sets[0][0][1].shape[0]
     print(f"extrema_scan {label} vs plain: {len(sets)} calls of "
           f"{len(sets[0])} levels, {n_vols} volumes a call, {sum(rows)} rows "
-          f"({totals} before the caps), {launches} launches: rows, counts "
+          f"({totals} before the caps), {n_launches} launches: rows, counts "
           f"and totals equal bit for bit")
     return dict(calls=len(sets), levels=sum(len(lv) for lv in sets),
-                volumes=n_vols, rows=rows, totals=totals, launches=launches)
+                volumes=n_vols, rows=rows, totals=totals, launches=n_launches)
 
 
 def orient_args(gpyr, ext, plan, limit=None):
@@ -502,9 +504,9 @@ def check_orient_levels(calls, corner_thresh, label) -> dict:
     near = rows = levels = 0
     for c, (r_all, args) in enumerate(calls):
         rows_p, args_p = padded(r_all, args, 5)
-        before = orient_terms_levels.launches
+        before = launches("orient_window")
         A_k, vd_k = orient_terms_levels(rows_p, args_p)
-        assert orient_terms_levels.launches == before + 1
+        assert launches("orient_window") == before + 1
         A_p, vd_p = orient_terms_levels_plain(r_all, args)
         torch.cuda.synchronize()
         r0 = 0
@@ -826,22 +828,16 @@ def run_cli(module, argv, dev) -> tuple[int, dict]:
     return rc, spent
 
 
+def launches(source: str) -> int:
+    """The launches of the kernel of ``csrc/<source>.cu`` so far: the
+    port's counter ``launches.<source>``."""
+    from sift3d_tpu_torch.utils import trace
+    return trace.counters().get(f"launches.{source}", 0)
+
+
 def angle_median(R1, R2) -> float:
     tr = torch.einsum("kij,kij->k", R1.double(), R2.double())
     return float(torch.median(torch.arccos(((tr - 1) / 2).clamp(-1, 1))))
-
-
-def launch_counts() -> tuple[int, int]:
-    """(kernel 1, kernel 3) launches since the counters were zeroed."""
-    from sift3d_tpu_torch.ops import cuda_orient, cuda_window
-    return (cuda_window.descrip_window.launches,
-            cuda_orient.orient_terms_levels.launches)
-
-
-def zero_launch_counts() -> None:
-    from sift3d_tpu_torch.ops import cuda_orient, cuda_window
-    cuda_window.descrip_window.launches = 0
-    cuda_orient.orient_terms_levels.launches = 0
 
 
 def event_ms(fn):
@@ -883,24 +879,24 @@ def check_f1(dev, corner_thresh) -> dict:
                         [450, 5, 3], [37, 6, 1]], device=dev)
     rows = torch.cat([torch.zeros_like(zyx[:, :1]), zyx], 1)
     args = [(level, len(zyx), len(zyx), radii, cores, RAW_UNITS, sigma, rad)]
-    before = cuda_orient.orient_terms_levels.launches
+    before = launches("orient_window")
     got = cuda_orient.orient_terms_levels(rows, args)
     torch.cuda.synchronize()
-    launches = cuda_orient.orient_terms_levels.launches - before
-    assert launches == 1, launches
+    launches3 = launches("orient_window") - before
+    assert launches3 == 1, launches3
     want = cuda_orient.orient_terms_levels_plain(rows, args)
     rel, err, near = compare_terms(got, want, corner_thresh,
                                    f"F1 kernel 3 {shape}")
     nb, o32, o64, _ = cuda_orient.orient_work_levels(rows, args)
     b, by = bound_ms(nb, o32, o64)
-    k3 = dict(shape=shape, extents=ext, rows=len(zyx), launches=launches,
+    k3 = dict(shape=shape, extents=ext, rows=len(zyx), launches=launches3,
               max_rel_err=rel, max_abs_err=err, near_threshold_rows=near,
               ms=cuda_ms(lambda: cuda_orient.orient_terms_levels(rows, args),
                          5),
               plain_ms=cuda_ms(lambda: cuda_orient.orient_terms_levels_plain(
                   rows, args), 1), bound_ms=b, bound_by=by)
     print(f"F1 orient_window on a {shape} level, table extents {ext} (box "
-          f"walk), {len(zyx)} rows: {launches} launch, max rel dev {rel:.3e} "
+          f"walk), {len(zyx)} rows: {launches3} launch, max rel dev {rel:.3e} "
           f"(tolerance {ORIENT_RTOL}), {near} near-threshold rows; "
           f"{k3['ms']:.4f} ms, plain {k3['plain_ms']:.3f} ms, bound "
           f"{b:.5f} ms ({by}) [{CARD[0]}]")
@@ -915,9 +911,9 @@ def check_f1(dev, corner_thresh) -> dict:
                            device=dev)
     a = (level, centers, rotations(len(centers), SEED, dev), len(centers),
          radii, cores, RAW_UNITS, sigma, rad, None)
-    before = cuda_window.descrip_window.launches
+    before = launches("descrip_window")
     worst = check_descrip_window([(("F1", shape), a)], f"F1 core {cores}")
-    launches1 = cuda_window.descrip_window.launches - before
+    launches1 = launches("descrip_window") - before
     assert launches1 == 1, launches1
     nb, ops, *_ = cuda_window.descrip_work(*a)
     b1, by1 = bound_ms(nb, ops)
@@ -946,6 +942,7 @@ def dense_phase(src, dev) -> dict:
     from sift3d_tpu_torch.features import dense as fdense
     from sift3d_tpu_torch.io import Volume, im_read, im_write
     from sift3d_tpu_torch.ops import conv
+    from sift3d_tpu_torch.utils import trace
 
     golden = np.load(os.path.join(ROOT, DENSE_GOLDEN))
     n = DENSE_SIZE
@@ -957,11 +954,11 @@ def dense_phase(src, dev) -> dict:
             else "all at once")
     blur = "framed" if n >= conv.BANDED_MIN_N else "dense"
     s = api.Sift3D(params)
-    zero_launch_counts()
+    trace.reset_counters()
     t0 = time.perf_counter()
     out = s.dense(vol)
     api_s = time.perf_counter() - t0
-    counts = launch_counts()
+    counts = (launches("descrip_window"), launches("orient_window"))
     assert out.shape == (12, n, n, n) and out.dtype == np.float32
     assert np.isfinite(out).all()
     sub = out[:, ::DENSE_STRIDE, ::DENSE_STRIDE, ::DENSE_STRIDE]
@@ -1023,10 +1020,10 @@ def dense_phase(src, dev) -> dict:
     os.makedirs(build, exist_ok=True)
     with tempfile.TemporaryDirectory(dir=build) as tmp:
         im_write(os.path.join(tmp, "src.nii"), Volume(src))
-        zero_launch_counts()
+        trace.reset_counters()
         rc, t_cli = run_cli(cli_dense, [os.path.join(tmp, "src.nii"),
                                         os.path.join(tmp, "ch%.nii")], dev)
-        cli_counts = launch_counts()
+        cli_counts = (launches("descrip_window"), launches("orient_window"))
         assert rc == 0, rc
         chans = [im_read(os.path.join(tmp, f"ch{c}.nii")).data
                  for c in range(12)]
@@ -1059,17 +1056,18 @@ def rotate_phase(dev, corner_thresh) -> dict:
     from sift3d_tpu_torch.config import SIFT3DParams
     from sift3d_tpu_torch.features import dense as fdense
     from sift3d_tpu_torch.ops import cuda_orient
+    from sift3d_tpu_torch.utils import trace
 
     n = ROT_SIZE
     vol = make_volume((n,) * 3, nblob=max(60, n // 2), seed=SEED)
     params = SIFT3DParams(dense_rotate=True)
     V = vol.size
     expect = -(-V // fdense.DENSE_ORIENT_ROWS)
-    zero_launch_counts()
+    trace.reset_counters()
     t0 = time.perf_counter()
     out = api.Sift3D(params).dense(vol)
     api_s = time.perf_counter() - t0
-    counts = launch_counts()
+    counts = (launches("descrip_window"), launches("orient_window"))
     print(f"dense rotate {n}^3 through Sift3D.dense: {api_s:.3f} s; "
           f"launches descrip_window {counts[0]} orient_window {counts[1]} "
           f"(expected {expect}) [{CARD[0]}]")
@@ -1151,14 +1149,15 @@ def tps_phase(src, ref, dev) -> dict:
     from sift3d_tpu_torch.io import Volume, im_read, im_write
     from sift3d_tpu_torch.io.csv import read_tps
     from sift3d_tpu_torch.register.tps import im_inv_transform_tps, tps_apply
+    from sift3d_tpu_torch.utils import trace
 
     reg = api.RegSift3D()
-    zero_launch_counts()
+    trace.reset_counters()
     t0 = time.perf_counter()
     res, tps = reg.register_tps(src, ref, reg=TPS_REG)
     torch.cuda.synchronize()
     reg_s = time.perf_counter() - t0
-    counts = launch_counts()
+    counts = (launches("descrip_window"), launches("orient_window"))
     assert res.ok and tps is not None and pair_ok(res.A), "register_tps"
     assert counts[1] == 2 and counts[0] > 0, counts
     inl = res.inlier_mask
@@ -1219,11 +1218,11 @@ def tps_phase(src, ref, dev) -> dict:
             return os.path.join(tmp, name)
         im_write(f("src.nii"), Volume(src))
         im_write(f("ref.nii"), Volume(ref))
-        zero_launch_counts()
+        trace.reset_counters()
         rc, t_cli = run_cli(cli_reg, ["--type", "tps", "--transform",
                                       f("t.csv"), "--warped", f("w.nii"),
                                       f("src.nii"), f("ref.nii")], dev)
-        cli_counts = launch_counts()
+        cli_counts = (launches("descrip_window"), launches("orient_window"))
         assert rc == 0, rc
         params, ctrl = read_tps(f("t.csv"))
         assert params.shape == (3, len(ctrl) + 4) and len(ctrl) >= 5
@@ -1327,10 +1326,10 @@ def fleet_phase(base, dev, plan4, params4, k1_times, k3_times) -> dict:
     from sift3d_tpu_torch.config import MatchParams, RansacParams
     from sift3d_tpu_torch.features import detect as detect_mod
     from sift3d_tpu_torch.features.orientation import levels_args
-    from sift3d_tpu_torch.ops import cuda_match
     from sift3d_tpu_torch.parallel.pipeline import batch_detect_describe
     from sift3d_tpu_torch.register import groupwise as gw
     from sift3d_tpu_torch.utils.checkpoint import GroupwiseCheckpoint
+    from sift3d_tpu_torch.utils import trace
     from sift3d_tpu_torch.utils.trace import (StageTimer, jsonl_writer,
                                               set_log_fn)
     card = CARD[0]
@@ -1352,8 +1351,7 @@ def fleet_phase(base, dev, plan4, params4, k1_times, k3_times) -> dict:
     timer = StageTimer("fleet")
     try:
         # (a) Detection, launches counted.
-        zero_launch_counts()
-        cuda_match.reduce_one_way.launches = 0
+        trace.reset_counters()
         sets, expect_k1, overflow = [], 0, 0
         for c in range(0, FLEET_VOLUMES, FLEET_CHUNK):
             with timer.stage(f"detect_{c // FLEET_CHUNK}") as out:
@@ -1363,7 +1361,7 @@ def fleet_phase(base, dev, plan4, params4, k1_times, k3_times) -> dict:
             sets.append(desc)
             expect_k1 += count_buckets(kp, {})[1]
             overflow += int(ov.sum())
-        det_counts = launch_counts()
+        det_counts = (launches("descrip_window"), launches("orient_window"))
         n_chunks = FLEET_VOLUMES // FLEET_CHUNK
         kp_counts = torch.cat([d.count for d in sets]).cpu().numpy()
         print(f"fleet detection, {FLEET_VOLUMES} volumes in {n_chunks} "
@@ -1403,7 +1401,7 @@ def fleet_phase(base, dev, plan4, params4, k1_times, k3_times) -> dict:
         # The call, its stages, and the result against the shifts.
         res = gw.register_groupwise(desc, edges, units)
         torch.cuda.synchronize()
-        assert cuda_match.reduce_one_way.launches == 0
+        assert launches("match_stream") == 0
         with timer.stage("match") as out:
             src, ref, cnt = gw._match_edges(desc, edges, units, MatchParams())
             out["m"] = (src, ref, cnt)
@@ -1649,7 +1647,7 @@ def mesh_phase(dev, src, plan, params, kp_src, d_src, d_ref, big, config4,
     from sift3d_tpu_torch.features.match import nn_match
     from sift3d_tpu_torch.features.orientation import (
         orientations_from_tensor)
-    from sift3d_tpu_torch.ops import conv, cuda_match, cuda_orient
+    from sift3d_tpu_torch.ops import conv, cuda_orient
     from sift3d_tpu_torch.ops.cuda_match import nn_match_streamed
     from sift3d_tpu_torch.parallel import (
         batch_register_pairs, conv_sep_sharded, descrip_level_sharded,
@@ -1658,6 +1656,7 @@ def mesh_phase(dev, src, plan, params, kp_src, d_src, d_ref, big, config4,
     from sift3d_tpu_torch.parallel.mesh import psum
     from sift3d_tpu_torch.parallel.pipeline import build_gpyr_batched
     from sift3d_tpu_torch.register import groupwise as gw
+    from sift3d_tpu_torch.utils import trace
     card = CARD[0]
     src4, ref4, plan4, params4 = config4
     bres, batch_counts, batch_ms = phase5
@@ -1766,12 +1765,12 @@ def mesh_phase(dev, src, plan, params, kp_src, d_src, d_ref, big, config4,
                 "2500x2300": (big[0], big[1], ones[0], ones[1])}
         out["b"] = {}
         for label, (a, b, va, vb) in sets.items():
-            cuda_match.reduce_one_way.launches = 0
+            before = launches("match_stream")
             m_sh = nn_match_sharded(a, b, thresh, mesh, valid1=va, valid2=vb,
                                     streamed=True)
             torch.cuda.synchronize()
-            launches = cuda_match.reduce_one_way.launches
-            assert launches == 2, launches
+            launches2 = launches("match_stream") - before
+            assert launches2 == 2, launches2
             m_ring = nn_match_ring(a, b, thresh, mesh, valid1=va, valid2=vb)
             m_str = nn_match_streamed(a, b, thresh, va, vb)
             m_dense = nn_match(a, b, thresh, va, vb)
@@ -1799,7 +1798,7 @@ def mesh_phase(dev, src, plan, params, kp_src, d_src, d_ref, big, config4,
                   f"float64) against nn_match(dtype=float64): rows "
                   f"differing {n64}; {int((m64 >= 0).sum())} matches, "
                   f"{vs32} rows differ from float32's")
-            out["b"][label] = dict(launches=launches,
+            out["b"][label] = dict(launches=launches2,
                                    matches=int((m_sh >= 0).sum()),
                                    near_tie_rows=n_diff,
                                    float64_rows_differing=n64,
@@ -1807,7 +1806,7 @@ def mesh_phase(dev, src, plan, params, kp_src, d_src, d_ref, big, config4,
                                    float64_vs_float32_rows=vs32)
             print(f"phase 10 (b) {label} ({a.shape[0]}x{b.shape[0]}): "
                   f"nn_match_sharded(streamed=True) launched match_stream "
-                  f"{launches} times, {int((m_sh >= 0).sum())} matches; rows "
+                  f"{launches2} times, {int((m_sh >= 0).sum())} matches; rows "
                   f"differing from nn_match_streamed / dense, and ring from "
                   f"dense, all near-ties: {n_diff}")
         # F2 decides here: on the decisive sets float64 rejects the row
@@ -1857,13 +1856,11 @@ def mesh_phase(dev, src, plan, params, kp_src, d_src, d_ref, big, config4,
               f"inside nn_match_streamed [{card}]")
 
         # (c) batch_register_pairs over the mesh against phase 5.
-        zero_launch_counts()
-        cuda_match.reduce_one_way.launches = 0
+        trace.reset_counters()
         mres = batch_register_pairs(src4, ref4, plan4, params4, device=dev,
                                     mesh=mesh)
         torch.cuda.synchronize()
-        counts = (launch_counts()[0], cuda_match.reduce_one_way.launches,
-                  launch_counts()[1])
+        counts = tuple(launches(k) for k in KERNELS_1_2_3)
         A_m, A_5 = mres.A.cpu().numpy(), bres.A.cpu().numpy()
         a_dev = float(np.nanmax(np.abs(A_m - A_5)))
         rate = float((mres.ok.cpu().numpy() & pair_ok(A_m)).mean())
@@ -2322,6 +2319,7 @@ def main() -> int:
                                                  reduce_one_way_plain)
     from sift3d_tpu_torch.parallel.pipeline import (batch_detect_describe,
                                                     batch_register_pairs)
+    from sift3d_tpu_torch.utils import trace
 
     dev = torch.device("cuda")
     card = card_line()
@@ -2382,16 +2380,11 @@ def main() -> int:
     for label, mp in (("default", MatchParams()),
                       ("streamed", MatchParams(impl="streamed"))):
         r = RegSift3D(match_params=mp, device=dev)
-        cuda_window.descrip_window.launches = 0
-        cuda_match.reduce_one_way.launches = 0
-        cuda_orient.orient_terms_levels.launches = 0
-        cuda_extrema.scan.launches = 0
+        trace.reset_counters()
         res = r.register(src, ref)
         torch.cuda.synchronize()
-        counts = (cuda_window.descrip_window.launches,
-                  cuda_match.reduce_one_way.launches,
-                  cuda_orient.orient_terms_levels.launches)
-        k4_launches = cuda_extrema.scan.launches
+        counts = tuple(launches(k) for k in KERNELS_1_2_3)
+        k4_launches = launches("extrema_scan")
         ok = bool(res.ok and pair_ok(res.A) and not res.kp_overflow)
         print(f"register {SIZE}^3 ({label} matcher): ok={ok}, "
               f"matches {len(res.match_src)}, inliers {res.num_inliers}, "
@@ -2462,18 +2455,13 @@ def main() -> int:
                                    "config-4 batch, both sides")
 
     expect = [sum(side[2][i] for side in sides) for i in range(2)]
-    cuda_window.descrip_window.launches = 0
-    cuda_orient.orient_terms_levels.launches = 0
-    cuda_match.reduce_one_way.launches = 0
-    cuda_extrema.scan.launches = 0
+    trace.reset_counters()
     t0 = time.perf_counter()
     bres = batch_register_pairs(src4, ref4, plan4, params4, device=dev)
     torch.cuda.synchronize()
     first_s = time.perf_counter() - t0
-    batch_counts = (cuda_window.descrip_window.launches,
-                    cuda_match.reduce_one_way.launches,
-                    cuda_orient.orient_terms_levels.launches)
-    batch_k4 = cuda_extrema.scan.launches
+    batch_counts = tuple(launches(k) for k in KERNELS_1_2_3)
+    batch_k4 = launches("extrema_scan")
     A4 = bres.A.cpu().numpy()
     ok4 = bres.ok.cpu().numpy()
     passed4 = ok4 & pair_ok(A4)
@@ -2574,7 +2562,7 @@ def main() -> int:
               f"{t['plain_ms']:.3f} ms, bound {t['bound_ms']:.5f} ms "
               f"({t['bound_by']}) [{card}]")
 
-    from sift3d_tpu_torch.features.extrema import _scan_plain, extrema_levels
+    from sift3d_tpu_torch.features.extrema import extrema_levels
 
     def k4_times(sets, rows, peak_thresh, reps):
         least, design, ops, passing, found = work_sum(
@@ -2592,7 +2580,7 @@ def main() -> int:
             ms=cuda_ms(passes, reps),
             call_ms=cuda_ms(lambda: [extrema_levels(lv, peak_thresh)
                                      for lv in sets], reps),
-            plain_ms=cuda_ms(lambda: [_scan_plain(lv, peak_thresh)
+            plain_ms=cuda_ms(lambda: [cuda_extrema.scan_plain(lv, peak_thresh)
                                       for lv in sets], 1),
             bound_ms=b, bound_by=by, bytes=least, design_bound_ms=db,
             design_bound_by=dby, design_bytes=design, ops=ops)
@@ -2693,24 +2681,19 @@ def main() -> int:
     from sift3d_tpu_torch.ops.interp import im_inv_transform
 
     def counts():
-        return (cuda_window.descrip_window.launches,
-                cuda_orient.orient_terms_levels.launches)
-
-    def zero_counts():
-        cuda_window.descrip_window.launches = 0
-        cuda_orient.orient_terms_levels.launches = 0
+        return launches("descrip_window"), launches("orient_window")
 
     def n_buckets(kp):
         return sum(1 for _ in level_buckets(kp, plan))
 
     # 7a. Raw-image paths on the SIZE^3 volume with its detection's rows.
-    zero_counts()
+    trace.reset_counters()
     R_raw, conf_raw = api.assign_orientations(src, kp_src, RAW_UNITS, params)
     torch.cuda.synchronize()
     raw_orient_counts = counts()
     assert raw_orient_counts == (0, 1), raw_orient_counts
     raw_sift = api.Sift3D(params)
-    zero_counts()
+    trace.reset_counters()
     d_raw = raw_sift.extract_raw(src, kp_src, RAW_UNITS)
     torch.cuda.synchronize()
     raw_desc_counts = counts()
@@ -2775,7 +2758,7 @@ def main() -> int:
 
     # 7b. Resampled registration (regAnisoTest at size).
     aniso = np.ascontiguousarray(src[::2])
-    zero_counts()
+    trace.reset_counters()
     t0 = time.perf_counter()
     res = api.RegSift3D().register(Volume(src, (1.0, 1.0, 1.0)),
                                    Volume(aniso, (1.0, 1.0, 2.0)),
@@ -2804,7 +2787,7 @@ def main() -> int:
             return os.path.join(tmp, name)
         im_write(f("src.nii"), Volume(src))
         im_write(f("ref.nii"), Volume(ref))
-        zero_counts()
+        trace.reset_counters()
         rc, t_kp = run_cli(cli_kp, ["--keys", f("keys.csv"), "--desc",
                                     f("desc.csv"), "--draw", f("draw.nii"),
                                     f("src.nii")], dev)
@@ -2814,7 +2797,7 @@ def main() -> int:
         assert check_csv(f("desc.csv"), 771) == nk == kp_src.count
         assert im_read(f("draw.nii")).data.shape == src.shape
         assert kp_counts == (n_buckets(kp_src), 1), kp_counts
-        zero_counts()
+        trace.reset_counters()
         rc, t_reg = run_cli(cli_reg, [
             "--matches", f("m.csv"), "--transform", f("t.csv"), "--warped",
             f("w.nii"), "--concat", f("c.nii"), "--keys", f("k.nii"),

@@ -7,7 +7,8 @@ Makes the first pool item of ``mni152.batch64`` as ``portbench/pairs.py``
 makes it from ``--seed`` (64 pairs of 182 x 218 x 182 blob volumes), and
 for each side builds the pyramid and takes every keypoint level's extrema
 as ``features.detect.detect`` does: rows, counts and totals against the
-plain version on the same tensors, bit for bit (``chip_smoke.check_extrema``),
+plain version on the same tensors, bit for bit, with the kernels' launches
+read from the ``launches.extrema_scan`` counter (``chip_smoke.check_extrema``),
 then the kernels' passes by CUDA events (without the host read, mean of
 ``--reps``), the ``extrema_levels`` call with its read, the plain version,
 and ``ops/cuda_extrema.scan_work``'s counts: the function's least bytes
@@ -43,7 +44,7 @@ def main() -> int:
     from portbench import spec, volumes
     from sift3d_tpu_torch import SIFT3DParams, _build
     from sift3d_tpu_torch import pyramid as pyr
-    from sift3d_tpu_torch.features.extrema import _scan_plain, extrema_levels
+    from sift3d_tpu_torch.features.extrema import extrema_levels
     from sift3d_tpu_torch.ops import cuda_extrema
 
     dev = torch.device("cuda")
@@ -73,7 +74,8 @@ def main() -> int:
                           args.reps),
             call_ms=cs.cuda_ms(lambda: extrema_levels(levels, thresh),
                                args.reps),
-            plain_ms=cs.cuda_ms(lambda: _scan_plain(levels, thresh), 1),
+            plain_ms=cs.cuda_ms(
+                lambda: cuda_extrema.scan_plain(levels, thresh), 1),
             bytes=least, design_bytes=design, ops=ops,
             level_bytes=4 * voxels)
         side["bound_ms"], side["bound_by"] = cs.bound_ms(least, ops)

@@ -19,18 +19,22 @@ no card they raise instead of running on the CPU. Each stage runs inside a
 descriptors and dense here, match, ransac and tps in
 ``register/pipeline``), which a
 profiler trace reads as the stage breakdown. The batched entry points
-(``parallel.pipeline``) use the same spans. Beside them (``utils/trace``):
-``sift3d.upload``, the copy of the input volumes to the device, just
-before ``sift3d.pyramid`` and outside it; and ``sift3d.sync.<stage>``,
-nested in its stage around each deliberate device-to-host read (the
-extrema counts of every keypoint level, orientation's keep, the
-descriptors' bucket sizes and per-volume padding). Process-wide
-counters, always on, count the reads (``sync.<stage>``), the blur
+(``parallel.pipeline``) use the same spans. Every copy of an input
+volume to the device goes through ``ops/upload`` (``upload``, which
+these entry points call with ``image_dtype``: a float image keeps its
+type), inside its ``sift3d.upload`` span, just before
+``sift3d.pyramid`` and outside it. ``utils/trace`` keeps the
+``sift3d.sync.<stage>`` spans, nested in their stage around each
+deliberate device-to-host read (the extrema counts of every keypoint
+level, orientation's keep, the descriptors' bucket sizes and per-volume
+padding), and the process-wide counters, always on: the reads
+(``sync.<stage>``), the bytes uploaded (``upload.bytes``), the blur
 matrices copied up (``conv.w_uploads``), the extrema rows
 (``extrema.rows``), the keypoint levels searched (``extrema.levels``)
 and those the CUDA kernels searched (``extrema.kernel_levels``), the
-keypoints that orientation keeps (``orientation.kept``) and the calls of
-``batch_register_pairs``; ``trace.counters()`` reads them out.
+keypoints that orientation keeps (``orientation.kept``), the calls of
+``batch_register_pairs`` and each kernel's launches
+(``launches.<source>``); ``trace.counters()`` reads them out.
 """
 
 from __future__ import annotations
@@ -54,8 +58,8 @@ from .features.orientation import assign_orientations_raw
 from .io import im_read, im_write  # noqa: F401  (re-exported)
 from .io.volume import Volume
 from .ops.interp import im_inv_transform, im_resample
+from .ops.upload import image_dtype, upload
 from .register.pipeline import register_pair, register_pair_tps
-from .utils import trace
 
 
 def _as_array(im):
@@ -63,13 +67,6 @@ def _as_array(im):
     if isinstance(im, Volume):
         return im.data, im.units
     return (im if torch.is_tensor(im) else np.asarray(im)), None
-
-
-def _tensor(data, device) -> torch.Tensor:
-    """A (nz, ny, nx) image on ``device``, keeping its float type."""
-    t = data if torch.is_tensor(data) else torch.as_tensor(np.asarray(data))
-    return trace.upload(t, device,
-                        None if t.is_floating_point() else torch.float32)
 
 
 def _plan(shape_zyx, units, params):
@@ -127,7 +124,8 @@ class Sift3D:
         units = tuple(vunits or units)
         with record_function("sift3d.descriptors"):
             return extract_raw_descriptors(
-                _tensor(data, self.device), kp.to(self.device), units,
+                upload(data, self.device, image_dtype(data)),
+                kp.to(self.device), units,
                 _plan(data.shape, units, self.params), self.params)
 
     def dense(self, im, units=(1.0, 1.0, 1.0)) -> np.ndarray:
@@ -137,8 +135,9 @@ class Sift3D:
         data, vunits = _as_array(im)
         units = tuple(vunits or units)
         with record_function("sift3d.dense"):
-            out = extract_dense_descriptors(_tensor(data, self.device),
-                                            units, self.params)
+            out = extract_dense_descriptors(
+                upload(data, self.device, image_dtype(data)), units,
+                self.params)
         return out.cpu().numpy()
 
 
@@ -153,7 +152,7 @@ def assign_orientations(im, kp: Keypoints, units=(1.0, 1.0, 1.0),
     units = tuple(vunits or units)
     with record_function("sift3d.orientation"):
         R, conf = assign_orientations_raw(
-            _tensor(data, dev), kp.to(dev), units,
+            upload(data, dev, image_dtype(data)), kp.to(dev), units,
             _plan(data.shape, units, params), params)
     return R.cpu().numpy(), conf.cpu().numpy()
 
@@ -281,8 +280,8 @@ class RegSift3D:
             descs = []
             for data, units in ((src_data, src_units), (ref_data, ref_units)):
                 with record_function("sift3d.resample"):
-                    im = im_resample(_tensor(data, dev), units, units_min,
-                                     interp)
+                    im = im_resample(upload(data, dev, image_dtype(data)),
+                                     units, units_min, interp)
                 desc, over = self._describe(im, units_min)
                 descs.append((_scale_descriptors(
                     desc, [um / u for um, u in zip(units_min, units)]), over))
@@ -344,7 +343,8 @@ def warp(src, A, out_shape_zyx=None, interp: str = "linear",
     imutil.c:2040-2081); with ``Registration.A`` it warps src onto ref."""
     data, _ = _as_array(src)
     with record_function("sift3d.warp"):
-        out = im_inv_transform(np.asarray(A, np.float64),
-                               _tensor(data, resolve_device(device)),
-                               out_shape_zyx, interp)
+        out = im_inv_transform(
+            np.asarray(A, np.float64),
+            upload(data, resolve_device(device), image_dtype(data)),
+            out_shape_zyx, interp)
     return out.cpu().numpy()

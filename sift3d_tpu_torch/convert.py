@@ -54,9 +54,11 @@ def params_from_dict(cls, d: dict):
     return cls(**kw)
 
 
-def _tensor(a, dtype, device):
+def _converter(device):
+    """``t(a, dtype)``: the array ``a`` as a tensor of ``dtype`` on
+    ``device``."""
     dev = resolve_device(device)
-    return torch.as_tensor(np.array(a), device=dev).to(dtype)
+    return lambda a, dtype: torch.as_tensor(np.array(a), device=dev).to(dtype)
 
 
 def _count(count, device):
@@ -68,8 +70,7 @@ def _count(count, device):
 
 def keypoints_from_numpy(x, y, z, o, s, sd, R, count, device="cpu") -> Keypoints:
     """Keypoints from the JAX ``Keypoints`` fields as numpy arrays."""
-    def t(a, dtype):
-        return _tensor(a, dtype, device)
+    t = _converter(device)
     return Keypoints(x=t(x, F64), y=t(y, F64), z=t(z, F64),
                      o=t(o, torch.int32), s=t(s, torch.int32), sd=t(sd, F64),
                      R=t(R, torch.float32), count=_count(count, device))
@@ -77,8 +78,7 @@ def keypoints_from_numpy(x, y, z, o, s, sd, R, count, device="cpu") -> Keypoints
 
 def descriptors_from_numpy(xyz, sd, vec, count, device="cpu") -> Descriptors:
     """Descriptors from the JAX ``Descriptors`` fields as numpy arrays."""
-    def t(a, dtype):
-        return _tensor(a, dtype, device)
+    t = _converter(device)
     return Descriptors(xyz=t(xyz, F64), sd=t(sd, F64),
                        vec=t(vec, torch.float32), count=_count(count, device))
 

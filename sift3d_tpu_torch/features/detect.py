@@ -20,6 +20,7 @@ from torch.profiler import record_function
 from .. import pyramid as pyr_mod
 from ..config import SIFT3DParams
 from ..dtypes import F64
+from ..ops.upload import upload
 from ..utils import trace
 from . import extrema, orientation
 from .keypoints import Keypoints
@@ -122,11 +123,11 @@ def detect(vols, plan, params: SIFT3DParams, device,
     index, and the (B,) flag of volumes whose extrema exceeded a level's
     capacity. ``pipelined`` builds the pyramid with
     ``pyramid.build_gpyr_pipelined``. The copy to ``device`` (or the wait
-    for the copy that ``trace.upload_start`` began, when ``vols`` is its
-    Pending) runs in the ``sift3d.upload`` span, each stage after it
+    for the copy that ``ops/upload.upload_start`` began, when ``vols`` is
+    its Pending) runs in the ``sift3d.upload`` span, each stage after it
     inside a ``sift3d.<stage>`` profiler span.
     """
-    vols = trace.upload(vols, device, torch.float32)
+    vols = upload(vols, device, torch.float32)
     with record_function("sift3d.pyramid"):
         build = pyr_mod.build_gpyr_pipelined if pipelined else \
             pyr_mod.build_gpyr

@@ -16,10 +16,9 @@ held to its own max |DoG| (``jax.vmap(level_extrema)`` in
 ``sift3d_tpu/parallel/pipeline.py``).
 
 ``extrema_levels`` finds the extrema of every keypoint level of a
-detection with one host read: on the card by the kernels of
-``ops/cuda_extrema.py``, elsewhere by the plain version here
-(``extrema_mask``, a capacity cap by cumsum and ``torch.nonzero``), which
-the kernels' tests hold them to.
+detection with one host read, through ``ops/cuda_extrema.scan`` (the
+kernels on the card, their plain version ``scan_plain`` on the CPU);
+``extrema_mask``, the test itself, lives there too.
 """
 
 from __future__ import annotations
@@ -27,54 +26,8 @@ from __future__ import annotations
 import torch
 
 from ..ops import cuda_extrema
+from ..ops.cuda_extrema import extrema_mask  # noqa: F401  (re-exported)
 from ..utils import trace
-
-
-def extrema_mask(prev: torch.Tensor, cur: torch.Tensor, nxt: torch.Tensor,
-                 peak_thresh: float,
-                 dogmax: torch.Tensor | None = None) -> torch.Tensor:
-    """(..., nz-2, ny-2, nx-2) bool: the interior voxels of ``cur`` that
-    are extrema, each volume against its own max |value| (or the given
-    per-volume ``dogmax``, when ``cur`` is a slab of the volume)."""
-    if dogmax is None:
-        dogmax = torch.amax(torch.abs(cur), dim=(-3, -2, -1))
-    dogmax = dogmax[..., None, None, None]
-    t = torch.as_tensor(peak_thresh, dtype=cur.dtype) * dogmax
-
-    c = cur[..., 1:-1, 1:-1, 1:-1]
-    peak_ok = (c > t) | (c < -t)
-    p_c = prev[..., 1:-1, 1:-1, 1:-1]
-    n_c = nxt[..., 1:-1, 1:-1, 1:-1]
-    is_max = (c > p_c) & (c > n_c)
-    is_min = (c < p_c) & (c < n_c)
-    for nb in (cur[..., 1:-1, 1:-1, 2:], cur[..., 1:-1, 1:-1, :-2],
-               cur[..., 1:-1, 2:, 1:-1], cur[..., 1:-1, :-2, 1:-1],
-               cur[..., :-2, 1:-1, 1:-1], cur[..., 2:, 1:-1, 1:-1]):
-        is_max &= c > nb
-        is_min &= c < nb
-    return peak_ok & (is_max | is_min)
-
-
-def _scan_plain(levels, peak_thresh: float):
-    """``ops/cuda_extrema.scan``'s plain version: ``extrema_mask`` of each
-    level, each volume's first ``capacity`` hits by a cumsum over the
-    level, and ``torch.nonzero``."""
-    rows, count, total = [], [], []
-    for prev, cur, nxt, capacity in levels:
-        mask = extrema_mask(prev, cur, nxt, peak_thresh)
-        flat = mask.reshape(mask.shape[0], -1)
-        t = flat.sum(1)
-        if capacity < flat.shape[1]:
-            # Keep each volume's first `capacity` hits in scan order.
-            flat = flat & (torch.cumsum(flat, 1, dtype=torch.int32) <=
-                           capacity)
-        r = torch.nonzero(flat.reshape(mask.shape)).to(torch.int32)
-        r[:, 1:] += 1
-        rows.append(r)
-        total.append(t)
-        count.append(torch.clamp(t, max=capacity))
-    return (torch.stack(count), torch.stack(total),
-            lambda n: torch.cat(rows))
 
 
 def extrema_levels(levels, peak_thresh: float):
@@ -88,10 +41,9 @@ def extrema_levels(levels, peak_thresh: float):
       peak_thresh: relative threshold.
 
     Returns, per level, ``level_extrema``'s (rows, count, total). Batch
-    rows are slices of one (n, 4) buffer, level by level. CUDA tensors go
-    through the kernels of ``ops/cuda_extrema.py`` and CPU tensors through
-    ``_scan_plain``; either way the counts come to the host in one read,
-    in the span ``sift3d.sync.extrema``.
+    rows are slices of one (n, 4) buffer, level by level. The counts of
+    ``cuda_extrema.scan`` come to the host in one read, in the span
+    ``sift3d.sync.extrema``.
     """
     if not levels:
         return []
@@ -99,14 +51,7 @@ def extrema_levels(levels, peak_thresh: float):
     if single:
         levels = [(p[None], c[None], n[None], cap)
                   for p, c, n, cap in levels]
-    dev = levels[0][1].device
-    if dev.type == "cuda":
-        count, total, emit = cuda_extrema.scan(levels, peak_thresh)
-        trace.count("extrema.kernel_levels", len(levels))
-    elif dev.type == "cpu":
-        count, total, emit = _scan_plain(levels, peak_thresh)
-    else:
-        raise ValueError(f"extrema_levels: unsupported device {dev}")
+    count, total, emit = cuda_extrema.scan(levels, peak_thresh)
     with trace.host_read("extrema"):
         host = torch.stack([count, total]).cpu()
     sizes = host[0].sum(1).tolist()

@@ -1,16 +1,17 @@
 """DoG extrema: the CUDA kernels (``csrc/extrema_scan.cu``) of every
-keypoint level of a detection at once.
+keypoint level of a detection at once, and their plain PyTorch version.
 
-The plain version is ``features/extrema.py`` (``extrema_mask`` and its
-scan), which also holds the glue both share (``extrema_levels``: the one
-host read and the per-level slices). For a (B, nz, ny, nx) batch the
+``scan`` launches the kernels for CUDA tensors and runs ``scan_plain``
+(``extrema_mask`` of each level, a capacity cap by cumsum and
+``torch.nonzero``) for CPU tensors; there is no fallback. The glue both
+share (``features/extrema.extrema_levels``: the one host read and the
+per-level slices) calls ``scan``. For a (B, nz, ny, nx) batch the
 kernels take, per level, each volume's max |cur| (max pass), the hits of
 ``extrema_mask``'s test in each block of whole interior rows (count pass;
 no mask is written), and, after the read, write each volume's first
 ``capacity`` hits in scan order as (volume, z, y, x) rows (emit pass),
 the rows the plain version's ``torch.nonzero`` gives, bit for bit: the
 threshold is the same fp32 product and the comparisons are the same.
-There is no fallback from the kernels to the plain version.
 """
 
 from __future__ import annotations
@@ -21,6 +22,7 @@ import numpy as np
 import torch
 
 from .. import _build
+from ..utils import trace
 
 # The kernels' limits: levels a launch (its parameter table; more levels
 # take more launches), warps of a count / emit block, values of one
@@ -77,22 +79,74 @@ def _groups(entries):
     return out
 
 
+def extrema_mask(prev: torch.Tensor, cur: torch.Tensor, nxt: torch.Tensor,
+                 peak_thresh: float,
+                 dogmax: torch.Tensor | None = None) -> torch.Tensor:
+    """(..., nz-2, ny-2, nx-2) bool: the interior voxels of ``cur`` that
+    are extrema, each volume against its own max |value| (or the given
+    per-volume ``dogmax``, when ``cur`` is a slab of the volume)."""
+    if dogmax is None:
+        dogmax = torch.amax(torch.abs(cur), dim=(-3, -2, -1))
+    dogmax = dogmax[..., None, None, None]
+    t = torch.as_tensor(peak_thresh, dtype=cur.dtype) * dogmax
+
+    c = cur[..., 1:-1, 1:-1, 1:-1]
+    peak_ok = (c > t) | (c < -t)
+    p_c = prev[..., 1:-1, 1:-1, 1:-1]
+    n_c = nxt[..., 1:-1, 1:-1, 1:-1]
+    is_max = (c > p_c) & (c > n_c)
+    is_min = (c < p_c) & (c < n_c)
+    for nb in (cur[..., 1:-1, 1:-1, 2:], cur[..., 1:-1, 1:-1, :-2],
+               cur[..., 1:-1, 2:, 1:-1], cur[..., 1:-1, :-2, 1:-1],
+               cur[..., :-2, 1:-1, 1:-1], cur[..., 2:, 1:-1, 1:-1]):
+        is_max &= c > nb
+        is_min &= c < nb
+    return peak_ok & (is_max | is_min)
+
+
+def scan_plain(levels, peak_thresh: float):
+    """``scan``'s plain version: ``extrema_mask`` of each level, each
+    volume's first ``capacity`` hits by a cumsum over the level, and
+    ``torch.nonzero``."""
+    rows, count, total = [], [], []
+    for prev, cur, nxt, capacity in levels:
+        mask = extrema_mask(prev, cur, nxt, peak_thresh)
+        flat = mask.reshape(mask.shape[0], -1)
+        t = flat.sum(1)
+        if capacity < flat.shape[1]:
+            # Keep each volume's first `capacity` hits in scan order.
+            flat = flat & (torch.cumsum(flat, 1, dtype=torch.int32) <=
+                           capacity)
+        r = torch.nonzero(flat.reshape(mask.shape)).to(torch.int32)
+        r[:, 1:] += 1
+        rows.append(r)
+        total.append(t)
+        count.append(torch.clamp(t, max=capacity))
+    return (torch.stack(count), torch.stack(total),
+            lambda n: torch.cat(rows))
+
+
 def scan(levels, peak_thresh: float):
     """Count the extrema of every level and return how to emit them.
 
     Args:
       levels: per level, (prev, cur, nxt, capacity): (B, nz, ny, nx)
-        float32 CUDA tensors of DoG levels s - 1, s, s + 1 (one B for all
-        levels) and the rows kept a volume.
+        tensors of DoG levels s - 1, s, s + 1 (float32 on a CUDA device;
+        one B and one device for all levels) and the rows kept a volume.
       peak_thresh: the relative threshold.
 
     Returns (count, total, emit): (levels, B) int64 tensors of the clamped
     and the unclamped extrema counts, and ``emit(n)``, which returns the
     (n, 4) int32 rows (volume, z, y, x) of every level, level by level, n
-    the sum of ``count`` read on the host. Every launch is queued on the
-    current stream; nothing here waits for the card.
+    the sum of ``count`` read on the host. On the card every launch is
+    queued on the current stream (nothing here waits for the card) and
+    the levels are counted as ``extrema.kernel_levels``.
     """
     dev = levels[0][1].device
+    if dev.type == "cpu":
+        return scan_plain(levels, peak_thresh)
+    if dev.type != "cuda":
+        raise ValueError(f"extrema scan: unsupported device {dev}")
     B = levels[0][1].shape[0]
     L = len(levels)
     held, entries, G = [], [], 0
@@ -133,7 +187,7 @@ def scan(levels, peak_thresh: float):
         _build.check(max_fn(ctypes.addressof(table), n, blocks,
                             stats[0].data_ptr(), stream),
                      "extrema_scan max launch")
-        scan.launches += 1
+        trace.count("launches.extrema_scan")
     count_fn = _fn("sift3d_extrema_count", 4, True)
     for table, n, blocks, _ in groups:
         _build.check(count_fn(ctypes.addressof(table), n, blocks, peak,
@@ -141,7 +195,7 @@ def scan(levels, peak_thresh: float):
                               stats[2].data_ptr(), block_counts.data_ptr(),
                               stream),
                      "extrema_scan count launch")
-        scan.launches += 1
+        trace.count("launches.extrema_scan")
     count = torch.minimum(stats[1], stats[2])
     before = torch.cumsum(block_counts, 0, dtype=torch.int64) - block_counts
     out_start = torch.cumsum(count, 0, dtype=torch.int64) - count
@@ -158,14 +212,12 @@ def scan(levels, peak_thresh: float):
                                  out_start.data_ptr(), rows.data_ptr(),
                                  stream),
                          "extrema_scan emit launch")
-            scan.launches += 1
+            trace.count("launches.extrema_scan")
         held.clear()           # the launches are queued
         return rows
 
+    trace.count("extrema.kernel_levels", L)
     return count.view(L, B).long(), stats[1].view(L, B).long(), emit
-
-
-scan.launches = 0
 
 
 def _sectors(mask: torch.Tensor) -> int:
@@ -191,7 +243,6 @@ def scan_work(levels, peak_thresh: float) -> tuple[int, ...]:
     below the capacity, counted whole) cur's sectors and prev's and
     next's passing sectors once more. Traffic between L2 and the SMs (the
     neighbours' loads) is not counted."""
-    from ..features.extrema import extrema_mask
     least = design = ops = passing = n_rows = 0
     for prev, cur, nxt, cap in levels:
         B, nz, ny, nx = cur.shape

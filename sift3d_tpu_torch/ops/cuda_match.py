@@ -39,6 +39,7 @@ import torch
 from .. import _build
 from .._build import NUM_SMS
 from ..features.match import _consistent, _ratio_accept
+from ..utils import trace
 
 # Targets per block of the plain version (the TPU kernel's block).
 PLAIN_BLOCK = 512
@@ -167,11 +168,9 @@ def reduce_one_way(q: torch.Tensor, t: torch.Tensor, qsq: torch.Tensor,
                        buf[3 * nq:].data_ptr() if ranges > 1 else None,
                        torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(err, "match_stream launch")
-    reduce_one_way.launches += 1
+    trace.count("launches.match_stream")
     return best, second, idx
 
-
-reduce_one_way.launches = 0
 
 
 def match_reduce_streamed(d1: torch.Tensor, d2: torch.Tensor,

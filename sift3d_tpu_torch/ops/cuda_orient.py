@@ -58,6 +58,7 @@ from ..dtypes import F64
 from ..features.windows import (batch_view, gather_windows, union_mask,
                                 window_gradients, window_starts,
                                 window_union)
+from ..utils import trace
 
 # Window voxels per chunk of the plain version (bounds its temporaries).
 _CHUNK_VOXELS = 1 << 22
@@ -421,11 +422,9 @@ def orient_terms_levels(rows, levels):
             A6.data_ptr(), vd.data_ptr(),
             torch.cuda.current_stream(dev).cuda_stream)
         _build.check(err, "orient_window launch")
-        orient_terms_levels.launches += 1
+        trace.count("launches.orient_window")
     return A6, vd
 
-
-orient_terms_levels.launches = 0
 
 
 def orient_terms(level, zyx, count: int, radii, cores, units, sigma: float,

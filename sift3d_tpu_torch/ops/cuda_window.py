@@ -54,6 +54,7 @@ from ..config import (BARY_EPS, DESC_NUM_TOTAL_HIST, DESC_NUMEL, NHIST_PER_DIM)
 from ..features.windows import (batch_view, gather_windows, union_mask,
                                 window_gradients, window_starts,
                                 window_union)
+from ..utils import trace
 from .geometry import face_solve_tables, face_tables, icos_hist_bin, vertex_weights
 
 # Window voxels per chunk of the plain version (bounds its temporaries:
@@ -354,11 +355,9 @@ def descrip_window(level, centers, R, count: int, radii, cores, units,
         buf[K * DESC_NUMEL + scratch:].data_ptr(),
         torch.cuda.current_stream(level.device).cuda_stream)
     _build.check(err, "descrip_window launch")
-    descrip_window.launches += 1
+    trace.count("launches.descrip_window")
     return out
 
-
-descrip_window.launches = 0
 
 # The fp32 operations the function needs (each add, multiply, comparison,
 # division, sqrt, exp or floor counts one; constants of a call or a row

@@ -1,4 +1,8 @@
-"""Host-to-card uploads through a reused pinned ring on a copy stream.
+"""Every copy of the pipeline's input volumes to a device: ``upload`` and
+``upload_start`` take an array or a tensor, count the bytes it takes from
+the host (``upload.bytes``) and open the ``sift3d.upload`` span (see
+``utils/trace``); ``image_dtype`` is the API's rule for the type an image
+is uploaded as.
 
 A pageable ``.to(device)`` of a volume stack holds the caller for the
 whole copy, and the card has nothing to do meanwhile. Here a copy from
@@ -12,7 +16,7 @@ queues the buffer's copy to the device on a copy stream of its own, so
 that staging the next piece overlaps the copy of this one. Nothing is
 kept of the caller's data: every call copies every byte. Every other
 copy (to a CPU destination, or of a tensor already on a device) is the
-plain ``.to()``.
+plain ``.to()``, made contiguous.
 
 Stream safety: the destination is allocated on the caller's thread, on
 its current stream; the copy stream first waits for an event recorded
@@ -20,10 +24,10 @@ there after the allocation, and the caller's stream waits for the
 upload's last event before any use. No ``record_stream``, and no host
 sync of the caller's stream.
 
-``submit`` runs an upload on the one upload worker thread and returns at
-once with a ``Pending``: uploads run there in the order they were
-submitted, so a caller can start the upload of the next batch before it
-works on this one.
+``upload_start`` runs an upload on the one upload worker thread and
+returns at once with a ``Pending``: uploads run there in the order they
+were started, so a caller can start the upload of the next batch before
+it works on this one.
 """
 
 from __future__ import annotations
@@ -33,7 +37,11 @@ import itertools
 import math
 import threading
 
+import numpy as np
 import torch
+from torch.profiler import record_function
+
+from ..utils import trace
 
 CHUNK_BYTES = 64 << 20      # one ring buffer
 RING_DEPTH = 4              # buffers in the ring
@@ -117,12 +125,23 @@ def _worker() -> concurrent.futures.ThreadPoolExecutor:
         return _worker_obj
 
 
-def host_bytes(t: torch.Tensor, dtype=None) -> int:
-    """The bytes an upload of ``t`` as ``dtype`` takes from the host: 0
-    when ``t`` is already on a device."""
-    if t.device.type != "cpu":
-        return 0
-    return t.numel() * (dtype or t.dtype).itemsize
+def image_dtype(data):
+    """The type an image (an array or a tensor) is uploaded as: a float
+    image keeps its own (None), any other becomes float32."""
+    floating = data.is_floating_point() if torch.is_tensor(data) else \
+        np.asarray(data).dtype.kind == "f"
+    return None if floating else torch.float32
+
+
+def _source(data, dtype):
+    """``data`` as a tensor (an array's memory shared) and the bytes its
+    upload as ``dtype`` takes from the host (0 from a device), counted as
+    ``upload.bytes``."""
+    t = data if torch.is_tensor(data) else torch.as_tensor(np.asarray(data))
+    nbytes = t.numel() * (dtype or t.dtype).itemsize \
+        if t.device.type == "cpu" else 0
+    trace.count("upload.bytes", nbytes)
+    return t, nbytes
 
 
 def _staged(t: torch.Tensor, device: torch.device) -> bool:
@@ -165,27 +184,35 @@ def _fill(t: torch.Tensor, dst: torch.Tensor, after):
 
 
 def _plain(t: torch.Tensor, device, dtype):
-    return t.to(device=device, dtype=dtype)
+    return t.to(device=device, dtype=dtype).contiguous()
 
 
-def to_device(t: torch.Tensor, device, dtype=None) -> torch.Tensor:
-    """``t`` on ``device`` as ``dtype`` (its own type when None), staged
-    through the ring when it goes from the host to a CUDA device; the
-    caller's stream is ordered after the copy."""
-    device = torch.device(device)
-    if not _staged(t, device):
-        return _plain(t, device, dtype)
-    dst, after = _begin(t, device, dtype)
-    done = _fill(t, dst, after)
-    torch.cuda.current_stream(dst.device).wait_event(done)
-    return dst
+def upload(data, device, dtype=None) -> torch.Tensor:
+    """``data`` (an array or a tensor) on ``device`` as ``dtype`` (its own
+    type when None), contiguous, inside the span ``sift3d.upload``: staged
+    through the ring when it goes from the host to a CUDA device (the
+    caller's stream is ordered after the copy), else the plain ``.to()``.
+    Where ``data`` is the Pending of ``upload_start``, the span holds the
+    caller's wait for that copy (``device`` and ``dtype`` are then the
+    Pending's own)."""
+    with record_function("sift3d.upload"):
+        if isinstance(data, Pending):
+            return data.result()
+        t, _ = _source(data, dtype)
+        device = torch.device(device)
+        if not _staged(t, device):
+            return _plain(t, device, dtype)
+        dst, after = _begin(t, device, dtype)
+        done = _fill(t, dst, after)
+        torch.cuda.current_stream(dst.device).wait_event(done)
+        return dst
 
 
 class Pending:
     """An upload running on the upload worker. ``result()`` waits for it
     (raising the worker's exception) and orders the caller's current
     stream after its copies; ``wait()`` does the same and raises
-    nothing. ``nbytes``: what it takes from the host (``host_bytes``)."""
+    nothing. ``nbytes``: what it takes from the host."""
 
     def __init__(self, future, dst, nbytes: int):
         self._future = future
@@ -205,11 +232,14 @@ class Pending:
             self.result()
 
 
-def submit(t: torch.Tensor, device, dtype=None) -> Pending:
-    """Start ``to_device(t, device, dtype)`` on the upload worker and
-    return at once; the worker reads ``t`` until the Pending is done."""
+def upload_start(data, device, dtype=None) -> Pending:
+    """Start ``upload``'s copy on the upload worker and return at once,
+    with no span: the worker opens none, so no device work that the
+    caller launches meanwhile is given to it. Hand the Pending to
+    ``upload`` where the tensor is needed, and ``wait()`` on it before
+    the data it reads can go."""
+    t, nbytes = _source(data, dtype)
     device = torch.device(device)
-    nbytes = host_bytes(t, dtype)
     if not _staged(t, device):
         return Pending(_worker().submit(_plain, t, device, dtype), None,
                        nbytes)

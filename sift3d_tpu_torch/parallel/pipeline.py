@@ -27,7 +27,6 @@ from __future__ import annotations
 
 import dataclasses
 
-import numpy as np
 import torch
 from torch.profiler import record_function
 
@@ -41,6 +40,7 @@ from ..features.descriptor import (Descriptors, extract_descriptors,
 from ..features.keypoints import FIELDS, Keypoints
 from ..features.orientation import assign_orientations_level
 from ..ops import conv
+from ..ops.upload import upload, upload_start
 from ..register.pipeline import RegistrationResult, register_pairs
 from ..utils import trace
 from .mesh import Mesh, all_gather_cat, mesh_device, pmax
@@ -203,10 +203,7 @@ def _block(vols, mesh: Mesh, sl: _Slabs, dev) -> torch.Tensor:
     if sl.S > 1 and sl.splits(n):
         L = n // sl.S
         idx[1 + sl.sd] = slice(mesh.s * L, (mesh.s + 1) * L)
-    blk = vols[tuple(idx)]
-    if not torch.is_tensor(blk):
-        blk = np.ascontiguousarray(blk)
-    return trace.upload(blk, dev, torch.float32)
+    return upload(vols[tuple(idx)], dev, torch.float32)
 
 
 def _rows_by_volume(rows: torch.Tensor, B: int):
@@ -335,7 +332,7 @@ def batch_detect_describe(vols, plan, params: SIFT3DParams, device=None,
 
     Args:
       vols: (B, nz, ny, nx) raw volumes (numpy or torch, or on one device
-        the Pending of ``trace.upload_start``), one shape, the one
+        the Pending of ``ops/upload.upload_start``), one shape, the one
         ``plan`` was made for (``pyramid.plan_pyramid``); over a mesh,
         the same whole batch on every rank (B divisible by ``data``).
       params: SIFT3DParams; the level capacities bound each volume.
@@ -395,7 +392,7 @@ def batch_register_pairs(src_vols, ref_vols, plan, params: SIFT3DParams,
         ups = []
         try:
             for vols in (src_vols, ref_vols):
-                ups.append(trace.upload_start(vols, dev, torch.float32))
+                ups.append(upload_start(vols, dev, torch.float32))
             trace.count("upload.ahead_bytes", ups[1].nbytes)
             _, d_src, ov_src = batch_detect_describe(ups[0], plan, params,
                                                      dev, pipelined=pipelined)

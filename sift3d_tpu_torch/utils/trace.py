@@ -8,12 +8,13 @@ first-class:
 - StageTimer: wall-clock stage timing that waits for the devices of the
   stage's results, so device work is counted, not its enqueue;
 - profiler_trace: a ``torch.profiler`` capture written as a Chrome trace;
-- host_read and upload: the ``sift3d.sync.<stage>`` and ``sift3d.upload``
-  profiler spans around the pipeline's deliberate device-to-host reads and
-  its volume uploads (or the wait for an upload that ``upload_start``
-  began), beside the ``sift3d.<stage>`` spans of the stages;
+- host_read: the ``sift3d.sync.<stage>`` profiler span around each of
+  the pipeline's deliberate device-to-host reads, beside the
+  ``sift3d.<stage>`` spans of the stages (the ``sift3d.upload`` span of
+  the volume uploads is ``ops/upload``'s);
 - count, counters, reset_counters: process-wide integer counters at the
-  pipeline's work boundaries, always on, each counting a value already on
+  pipeline's work boundaries and of every kernel launch
+  (``launches.<source>``), always on, each counting a value already on
   the host (so none adds a sync);
 - stage_report: one structured dict per pipeline run (keypoint counts per
   level, match count, inlier count, residuals) - the signals a production
@@ -32,8 +33,6 @@ import numpy as np
 import torch
 from torch.profiler import record_function
 
-from ..ops import upload as staging
-
 _log_fn = None
 _counters: dict[str, int] = {}
 _counters_lock = threading.Lock()
@@ -51,26 +50,26 @@ def _emit(record: dict) -> None:
         _log_fn(record)
 
 
-def _tensors(x):
+def _held_tensors(x):
     """The tensors held by ``x``: a tensor, a dataclass, or a dict, list
     or tuple of them."""
     if torch.is_tensor(x):
         yield x
     elif dataclasses.is_dataclass(x) and not isinstance(x, type):
         for f in dataclasses.fields(x):
-            yield from _tensors(getattr(x, f.name))
+            yield from _held_tensors(getattr(x, f.name))
     elif isinstance(x, dict):
         for v in x.values():
-            yield from _tensors(v)
+            yield from _held_tensors(v)
     elif isinstance(x, (list, tuple)):
         for v in x:
-            yield from _tensors(v)
+            yield from _held_tensors(v)
 
 
 def _sync(results) -> None:
     """Wait for every CUDA device that holds one of ``results``' tensors
     (and no other)."""
-    devices = {t.device for r in results for t in _tensors(r)}
+    devices = {t.device for r in results for t in _held_tensors(r)}
     for d in devices:
         if d.type == "cuda":
             torch.cuda.synchronize(d)
@@ -150,35 +149,6 @@ def host_read(stage: str):
     count(f"sync.{stage}")
     with record_function(f"sift3d.sync.{stage}"):
         yield
-
-
-def _host_tensor(data, dtype) -> torch.Tensor:
-    """``data`` as a tensor (an array's memory shared), its bytes from the
-    host counted as ``upload.bytes``."""
-    t = data if torch.is_tensor(data) else torch.as_tensor(np.asarray(data))
-    count("upload.bytes", staging.host_bytes(t, dtype))
-    return t
-
-
-def upload(data, device, dtype=None) -> torch.Tensor:
-    """``data`` (an array or a tensor) on ``device`` as ``dtype`` (its own
-    type when None), inside the span ``sift3d.upload``: the copy
-    (``ops/upload.to_device``), or, where ``data`` is the Pending of
-    ``upload_start``, the caller's wait for that copy (``device`` and
-    ``dtype`` are then the Pending's own)."""
-    with record_function("sift3d.upload"):
-        if isinstance(data, staging.Pending):
-            return data.result()
-        return staging.to_device(_host_tensor(data, dtype), device, dtype)
-
-
-def upload_start(data, device, dtype=None) -> staging.Pending:
-    """Start ``upload``'s copy on the upload worker and return at once,
-    with no span: the worker opens none, so no device work that the
-    caller launches meanwhile is given to it. Hand the Pending to
-    ``upload`` where the tensor is needed, and ``wait()`` on it before
-    the data it reads can go."""
-    return staging.submit(_host_tensor(data, dtype), device, dtype)
 
 
 def _numpy(x) -> np.ndarray:

@@ -1,5 +1,5 @@
 """The extrema kernels (``csrc/extrema_scan.cu``, ``ops/cuda_extrema.py``)
-against their plain version (``features/extrema._scan_plain``), bit for
+against their plain version (``cuda_extrema.scan_plain``), bit for
 bit: rows, counts and totals.
 
 These need the card (the kernels are built with nvcc for sm_90a and have
@@ -32,7 +32,7 @@ def cuda():
 def _plain(levels, thresh):
     """The plain version on the same tensors: (rows, count, total) a
     level."""
-    count, total, emit = extrema._scan_plain(levels, thresh)
+    count, total, emit = cuda_extrema.scan_plain(levels, thresh)
     rows = emit(int(count.sum()))
     sizes = count.sum(1).tolist()
     return list(zip(torch.split(rows, sizes), count, total))
@@ -80,9 +80,9 @@ def test_extrema_kernel_mni152_octaves(cuda):
     keys = tdetect.kp_levels(plan)
     levels = [(dog[(o, s - 1)], dog[(o, s)], dog[(o, s + 1)],
                tdetect.level_cap(plan, o, params)) for o, s in keys]
-    before = cuda_extrema.scan.launches
+    before = trace.counters().get("launches.extrema_scan", 0)
     got = _check(levels, params.peak_thresh)
-    assert cuda_extrema.scan.launches == before + 3
+    assert trace.counters().get("launches.extrema_scan", 0) == before + 3
     assert all(int(c.sum()) > 0 for _, c, _ in got)
     ext = tdetect.detect_extrema_levels(dog, plan, params)
     for key, (r, c, t) in zip(keys, got):
@@ -158,9 +158,9 @@ def test_extrema_kernel_more_levels_than_a_launch(cuda):
         lv = [t.to(cuda) for t in _triple(shape, 100 + i, B=2,
                                           smooth=bool(i % 2))]
         levels.append((*lv, 1 + i * 7))
-    before = cuda_extrema.scan.launches
+    before = trace.counters().get("launches.extrema_scan", 0)
     got = _check(levels, 0.1)
-    assert cuda_extrema.scan.launches == before + 6
+    assert trace.counters().get("launches.extrema_scan", 0) == before + 6
     assert sum(int(c.sum()) for _, c, _ in got) > 0
 
 

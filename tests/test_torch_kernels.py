@@ -20,6 +20,7 @@ from sift3d_tpu_torch.features.match import nn_match
 from sift3d_tpu_torch.features.orientation import level_geometry
 from sift3d_tpu_torch.features.windows import window_extent
 from sift3d_tpu_torch.ops import cuda_match, cuda_orient, cuda_window
+from sift3d_tpu_torch.utils import trace
 
 torch.set_num_threads(1)
 
@@ -81,11 +82,11 @@ def test_descrip_window_kernel_matches_plain(cuda, units):
     K, count = 24, 20
     centers, R, geom = _descrip_args(rng, shape, K, units)
     want = cuda_window.descrip_window(level, centers, R, count, *geom)
-    before = cuda_window.descrip_window.launches
+    before = trace.counters().get("launches.descrip_window", 0)
     got = cuda_window.descrip_window(level.to(cuda), centers.to(cuda),
                                      R.to(cuda), count, *geom)
     torch.cuda.synchronize()
-    assert cuda_window.descrip_window.launches == before + 1
+    assert trace.counters().get("launches.descrip_window", 0) == before + 1
     got = got.cpu()
     assert torch.all(got[count:] == 0)
     scale = want.abs().max()
@@ -106,11 +107,11 @@ def test_descrip_window_kernel_batched(cuda):
         m = vol == b
         want[m] = cuda_window.descrip_window_plain(
             levels[b], centers[m], R[m], int(m.sum()), *geom)
-    before = cuda_window.descrip_window.launches
+    before = trace.counters().get("launches.descrip_window", 0)
     got = cuda_window.descrip_window(levels.to(cuda), centers.to(cuda),
                                      R.to(cuda), K, *geom, vol=vol.to(cuda))
     torch.cuda.synchronize()
-    assert cuda_window.descrip_window.launches == before + 1
+    assert trace.counters().get("launches.descrip_window", 0) == before + 1
     assert (got.cpu() - want).abs().max() <= 1e-4 * want.abs().max()
 
 
@@ -131,11 +132,11 @@ def test_orient_window_kernel_matches_plain(cuda, units):
     args = (count, radii, cores, units, sigma, rad)
     A_want, vd_want = cuda_orient.orient_terms_plain(levels, zyx, *args,
                                                      vol=vol)
-    before = cuda_orient.orient_terms_levels.launches
+    before = trace.counters().get("launches.orient_window", 0)
     A_got, vd_got = cuda_orient.orient_terms(levels.to(cuda), zyx.to(cuda),
                                              *args, vol=vol.to(cuda))
     torch.cuda.synchronize()
-    assert cuda_orient.orient_terms_levels.launches == before + 1
+    assert trace.counters().get("launches.orient_window", 0) == before + 1
     assert A_got.dtype == torch.float64 and vd_got.dtype == torch.float32
     A_got, vd_got = A_got.cpu(), vd_got.cpu()
     assert torch.all(A_got[count:] == 0) and torch.all(vd_got[count:] == 0)
@@ -168,10 +169,10 @@ def test_orient_window_kernel_levels_one_launch(cuda):
     rows = torch.as_tensor(np.concatenate(rows).astype(np.int32))
     A_want, vd_want = cuda_orient.orient_terms_levels(rows, args)
     args_d = [(a[0].to(cuda), *a[1:]) for a in args]
-    before = cuda_orient.orient_terms_levels.launches
+    before = trace.counters().get("launches.orient_window", 0)
     A_got, vd_got = cuda_orient.orient_terms_levels(rows.to(cuda), args_d)
     torch.cuda.synchronize()
-    assert cuda_orient.orient_terms_levels.launches == before + 1
+    assert trace.counters().get("launches.orient_window", 0) == before + 1
     A2, vd2 = cuda_orient.orient_terms_levels(rows.to(cuda), args_d)
     torch.cuda.synchronize()
     assert torch.equal(A_got, A2) and torch.equal(vd_got, vd2)
@@ -223,10 +224,10 @@ def test_orient_window_kernel_more_levels_than_a_launch(cuda):
     rows = torch.as_tensor(np.concatenate(rows).astype(np.int32))
     want = cuda_orient.orient_terms_levels_plain(rows, args)
     args_d = [(a[0].to(cuda), *a[1:]) for a in args]
-    before = cuda_orient.orient_terms_levels.launches
+    before = trace.counters().get("launches.orient_window", 0)
     got = cuda_orient.orient_terms_levels(rows.to(cuda), args_d)
     torch.cuda.synchronize()
-    assert cuda_orient.orient_terms_levels.launches == before + 2
+    assert trace.counters().get("launches.orient_window", 0) == before + 2
     assert _rel_dev(got, want) <= 1e-5
 
 
@@ -275,11 +276,11 @@ def test_match_kernel_matches_plain_and_dense(cuda):
     qsq = torch.where(v1, torch.sum(t1 * t1, 1), inf)
     tsq = torch.where(v2, torch.sum(t2 * t2, 1), inf)
     plain = cuda_match.reduce_one_way_plain(t1, t2, qsq, tsq)
-    before = cuda_match.reduce_one_way.launches
+    before = trace.counters().get("launches.match_stream", 0)
     got = cuda_match.reduce_one_way(t1.to(cuda), t2.to(cuda), qsq.to(cuda),
                                     tsq.to(cuda))
     torch.cuda.synchronize()
-    assert cuda_match.reduce_one_way.launches == before + 1
+    assert trace.counters().get("launches.match_stream", 0) == before + 1
     np.testing.assert_array_equal(got[2].cpu().numpy(), plain[2].numpy())
     for a, b in zip(got[:2], plain[:2]):
         np.testing.assert_allclose(a.cpu().numpy(), b.numpy(), rtol=1e-5,
@@ -311,11 +312,11 @@ def test_descrip_window_kernel_slab_split(cuda):
                         dtype=torch.float32).expand(2, 3, 3)
     geom = (radii, cores, units, sigma, rad)
     want = cuda_window.descrip_window_plain(level, centers, R, 1, *geom)
-    before = cuda_window.descrip_window.launches
+    before = trace.counters().get("launches.descrip_window", 0)
     got = cuda_window.descrip_window(level.to(cuda), centers.to(cuda),
                                      R.to(cuda), 1, *geom)
     torch.cuda.synchronize()
-    assert cuda_window.descrip_window.launches == before + 1
+    assert trace.counters().get("launches.descrip_window", 0) == before + 1
     got = got.cpu()
     assert torch.all(got[1:] == 0)
     assert (got - want).abs().max() <= 1e-4 * want.abs().max()
@@ -426,10 +427,10 @@ def test_orient_window_kernel_wide_extents(cuda, shape, units, sd, wide):
     zyx = torch.as_tensor(zyx).to(cuda)
     args = (5, radii, cores, units, sigma, rad)
     want = cuda_orient.orient_terms_plain(level, zyx[:5], *args)
-    before = cuda_orient.orient_terms_levels.launches
+    before = trace.counters().get("launches.orient_window", 0)
     got = cuda_orient.orient_terms(level, zyx, *args)
     torch.cuda.synchronize()
-    assert cuda_orient.orient_terms_levels.launches == before + 1
+    assert trace.counters().get("launches.orient_window", 0) == before + 1
     assert not got[0][5:].any() and not got[1][5:].any()
     rel = _rel_dev((got[0][:5], got[1][:5]), (want[0].cpu(), want[1].cpu()))
     print(f"orient wide extents {ext}: max rel dev {rel:.3e}")
@@ -514,10 +515,10 @@ def test_descrip_window_kernel_whole_level(cuda, n):
     geom = (radii, cores, units, sigma, rad)
     want = torch.cat([cuda_window.descrip_window_plain(
         level, centers[k:k + 1], R[k:k + 1], 1, *geom) for k in range(2)])
-    before = cuda_window.descrip_window.launches
+    before = trace.counters().get("launches.descrip_window", 0)
     got = cuda_window.descrip_window(level, centers, R, 2, *geom)
     torch.cuda.synchronize()
-    assert cuda_window.descrip_window.launches == before + 1
+    assert trace.counters().get("launches.descrip_window", 0) == before + 1
     assert cuda_window.slab_plan(2, cores[0])[1] > 1
     assert not got[2].any()
     got, want = got[:2].cpu(), want.cpu()
@@ -559,10 +560,11 @@ def test_orient_window_kernel_box_walk_past_extent_511(cuda, monkeypatch):
                                 0 if forced else 1 << 27)
             cuda_orient._statics.clear()
             assert cuda_orient.box_walk(radii, cores) == forced
-            before = cuda_orient.orient_terms_levels.launches
+            before = trace.counters().get("launches.orient_window", 0)
             got = cuda_orient.orient_terms(level, zyx, *args)
             torch.cuda.synchronize()
-            assert cuda_orient.orient_terms_levels.launches == before + 1
+            assert trace.counters().get(
+                "launches.orient_window", 0) == before + 1
             assert not got[0][5:].any() and not got[1][5:].any()
             rel = _rel_dev((got[0][:5], got[1][:5]), want)
             print(f"orient {shape} extents {ext} box walk {forced}: max rel "
@@ -592,10 +594,10 @@ def test_descrip_window_kernel_core_past_1024(cuda):
     want = cuda_window.descrip_window_plain(level, centers[:3], R[:3], 3,
                                             *geom).cpu()
     assert (want.abs().amax(1) > 0).all()
-    before = cuda_window.descrip_window.launches
+    before = trace.counters().get("launches.descrip_window", 0)
     got = cuda_window.descrip_window(level, centers, R, 3, *geom)
     torch.cuda.synchronize()
-    assert cuda_window.descrip_window.launches == before + 1
+    assert trace.counters().get("launches.descrip_window", 0) == before + 1
     assert cuda_window.slab_plan(3, cores[0])[1] > 1
     assert not got[3].any()
     got = got[:3].cpu()
@@ -624,14 +626,14 @@ def test_orient_window_kernel_every_voxel_a_row(cuda):
     shape = (64, 64, 64)
     level = torch.as_tensor(_level(rng, shape)).to(cuda)
     params = SIFT3DParams(dense_rotate=True)
-    before = cuda_orient.orient_terms_levels.launches
+    before = trace.counters().get("launches.orient_window", 0)
     R_k, A_k, vd_k = dense_orientations(level, (1.0, 1.0, 1.0), params)
     torch.cuda.synchronize()
-    assert cuda_orient.orient_terms_levels.launches == before + 1
+    assert trace.counters().get("launches.orient_window", 0) == before + 1
     R_p, A_p, vd_p = dense_orientations(
         level, (1.0, 1.0, 1.0), params,
         terms=cuda_orient.orient_terms_levels_plain)
-    assert cuda_orient.orient_terms_levels.launches == before + 1
+    assert trace.counters().get("launches.orient_window", 0) == before + 1
     assert A_k.shape == (64 ** 3, 6)
     rel = _rel_dev((A_k, vd_k), (A_p.cpu(), vd_p.cpu()))
     print(f"orient every voxel of {shape}: max rel dev {rel:.3e}")

@@ -32,6 +32,7 @@ from sift3d_tpu_torch.ops.cuda_orient import (ENTRIES_PER_WARP, MAX_LEVELS,
                                               orient_terms_plain, orient_work,
                                               orient_work_levels, table_extents,
                                               unpack, warps_per_row)
+from sift3d_tpu_torch.utils import trace
 
 torch.set_num_threads(1)
 
@@ -97,9 +98,9 @@ def case():
 
 def test_levels_equal_plain_level_by_level(case):
     rows = torch.as_tensor(np.concatenate(case["rows"]))
-    before = cuda_orient.orient_terms_levels.launches
+    before = trace.counters().get("launches.orient_window", 0)
     A6, vd = orient_terms_levels(rows, case["args"])
-    assert cuda_orient.orient_terms_levels.launches == before
+    assert trace.counters().get("launches.orient_window", 0) == before
     assert A6.dtype == torch.float64 and vd.dtype == torch.float32
     assert A6.shape == (rows.shape[0], 6) and vd.shape == (rows.shape[0], 3)
     r0 = 0

@@ -19,10 +19,12 @@ from sift3d_tpu_torch.api import (assign_orientations, descriptors_from_rows,
 from sift3d_tpu_torch.config import MatchParams, RansacParams, SIFT3DParams
 from sift3d_tpu_torch.convert import descriptors_from_numpy, params_from_dict
 from sift3d_tpu_torch.dtypes import resolve_device
-from sift3d_tpu_torch.ops import cuda_match, cuda_orient, cuda_window
+from sift3d_tpu_torch.ops import (cuda_extrema, cuda_match, cuda_orient,
+                                  cuda_window)
 from sift3d_tpu_torch.parallel import pipeline as tpipe
 from sift3d_tpu_torch.register.groupwise import (groupwise_solve,
                                                  register_groupwise)
+from sift3d_tpu_torch.utils import trace
 from sift3d_tpu_torch.utils.checkpoint import (load_descriptors,
                                                load_keypoints)
 
@@ -79,6 +81,27 @@ def test_sources_name_no_jax(path):
         for name in names:
             top = name.split(".")[0]
             assert top not in ("jax", "jaxlib", "sift3d_tpu"), (path, name)
+
+
+def test_utils_import_no_ops():
+    """``utils/`` (tracing, checkpoints, rooflines) sits below ``ops``:
+    none of its modules imports ``sift3d_tpu_torch.ops``."""
+    for path in sorted((PORT / "utils").glob("*.py")):
+        package = ["sift3d_tpu_torch", "utils"]
+        for node in ast.walk(ast.parse(path.read_text())):
+            if isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom):
+                base = package[:len(package) - node.level + 1] \
+                    if node.level else []
+                module = ".".join(base + ([node.module] if node.module
+                                          else []))
+                names = [module] + [f"{module}.{a.name}" for a in node.names]
+            else:
+                continue
+            for name in names:
+                assert not (name + ".").startswith("sift3d_tpu_torch.ops."), \
+                    (path.name, name)
 
 
 def test_entry_points_refuse_cpu_fallback(tmp_path):
@@ -264,10 +287,13 @@ def test_entry_points_pin_full_fp32():
     assert not torch.backends.cudnn.allow_tf32
 
 
+def _launch_counters() -> dict:
+    return {k: v for k, v in trace.counters().items()
+            if k.startswith("launches.")}
+
+
 def test_wrappers_run_plain_on_cpu_without_counting():
-    before = (cuda_window.descrip_window.launches,
-              cuda_match.reduce_one_way.launches,
-              cuda_orient.orient_terms_levels.launches)
+    before = _launch_counters()
     level = torch.zeros((12, 12, 12))
     out = cuda_window.descrip_window(
         level, torch.full((2, 3), 6.0), torch.eye(3).expand(2, 3, 3), 1,
@@ -281,9 +307,11 @@ def test_wrappers_run_plain_on_cpu_without_counting():
         (7, 7, 7), (1.0, 1.0, 1.0), 1.0, 3.0, vol=torch.tensor([0, 1, 1]))
     assert A6.dtype == torch.float64 and A6.shape == (3, 6)
     assert vd.shape == (3, 3) and not A6.any() and not vd.any()
-    assert (cuda_window.descrip_window.launches,
-            cuda_match.reduce_one_way.launches,
-            cuda_orient.orient_terms_levels.launches) == before
+    flat = torch.zeros((2, 6, 6, 6))
+    count, total, emit = cuda_extrema.scan([(flat, flat, flat, 4)], 0.1)
+    assert count.tolist() == total.tolist() == [[0, 0]]
+    assert emit(0).shape == (0, 4)
+    assert _launch_counters() == before
 
 
 @pytest.mark.parametrize("cls,kw", [

@@ -142,8 +142,7 @@ def case_threads_lose_nothing():
             for _ in range(4):
                 x = rng.standard_normal((2, 16, 12, 10)).astype(np.float32)
                 _equal_to_plain(x)
-                got = upload.submit(torch.as_tensor(x), "cpu",
-                                    torch.float64).result()
+                got = upload.upload_start(x, "cpu", torch.float64).result()
                 assert torch.equal(got, torch.as_tensor(x).double())
         except Exception as e:          # reported by the main thread
             errors.append(e)
@@ -218,8 +217,8 @@ def case_counts_with_and_without_profiler():
 
     def calls():
         _register(src, ref, plan, params)
-        trace.upload(x16, "cpu", torch.float32)
-        trace.upload_start(x16, "cpu").result()
+        upload.upload(x16, "cpu", torch.float32)
+        upload.upload_start(x16, "cpu").result()
 
     with torch.profiler.profile(
             activities=[torch.profiler.ProfilerActivity.CPU]):
@@ -257,7 +256,7 @@ def test_staged_upload_card(cuda):
     (the plain path), bit for bit; the ahead bytes are half the bytes
     uploaded. The same for ``RegSift3D.register`` on one pair. Then a
     multi-chunk int16 stack and a non-contiguous view
-    through ``to_device`` against the plain ``.to()``."""
+    through ``upload`` against the plain ``.to()``."""
     shape = (64, 64, 64)
     src, ref = make_pairs(4, shape)
     params = SIFT3DParams()
@@ -289,12 +288,12 @@ def test_staged_upload_card(cuda):
 
     rng = _rng()
     x16 = rng.integers(-32768, 32767, (9, 182, 218, 182), dtype=np.int16)
-    out = upload.to_device(torch.as_tensor(x16), cuda, torch.float32)
+    out = upload.upload(torch.as_tensor(x16), cuda, torch.float32)
     assert out.is_cuda
     assert _bitwise(out, torch.as_tensor(x16).to(cuda, torch.float32))
     base = torch.as_tensor(rng.standard_normal(
         (6, 100, 90, 80)).astype(np.float32))
     view = base[::2, :, 5:].transpose(1, 3)
-    out = upload.to_device(view, cuda)
+    out = upload.upload(view, cuda)
     assert _bitwise(out, view.to(cuda).contiguous())
     torch.cuda.synchronize()

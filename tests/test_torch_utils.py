@@ -286,7 +286,7 @@ def test_stage_timer_syncs_only_its_results(monkeypatch):
     class Fake:
         def __init__(self, d):
             self.device = d
-    monkeypatch.setattr(ptrace, "_tensors", lambda x: iter(
+    monkeypatch.setattr(ptrace, "_held_tensors", lambda x: iter(
         [Fake(d) for d in devs]))
     with t.stage("card") as out:
         out["a"] = object()
