@@ -23,13 +23,16 @@ profiler trace reads as the stage breakdown. The batched entry points
 volume to the device goes through ``ops/upload`` (``upload``, which
 these entry points call with ``image_dtype``: a float image keeps its
 type), inside its ``sift3d.upload`` span, just before
-``sift3d.pyramid`` and outside it. ``utils/trace`` keeps the
+``sift3d.pyramid`` and outside it (a host stack that streams in
+sub-batches, ``ops/upload.upload_parts``, alternates the two spans, one
+pair a sub-batch). ``utils/trace`` keeps the
 ``sift3d.sync.<stage>`` spans, nested in their stage around each
 deliberate device-to-host read (the extrema counts of every keypoint
 level, orientation's keep, the descriptors' bucket sizes and per-volume
 padding), and the process-wide counters, always on: the reads
-(``sync.<stage>``), the bytes uploaded (``upload.bytes``), the blur
-matrices copied up (``conv.w_uploads``), the extrema rows
+(``sync.<stage>``), the bytes uploaded (``upload.bytes``) and those that
+landed after their side's pyramid began (``upload.streamed_bytes``), the
+host-to-device copies of blur operators (``conv.w_uploads``), the extrema rows
 (``extrema.rows``), the keypoint levels searched (``extrema.levels``)
 and those the CUDA kernels searched (``extrema.kernel_levels``), the
 keypoints that orientation keeps (``orientation.kept``), the calls of

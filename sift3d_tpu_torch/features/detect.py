@@ -20,7 +20,7 @@ from torch.profiler import record_function
 from .. import pyramid as pyr_mod
 from ..config import SIFT3DParams
 from ..dtypes import F64
-from ..ops.upload import upload
+from ..ops.upload import upload_parts
 from ..utils import trace
 from . import extrema, orientation
 from .keypoints import Keypoints
@@ -122,17 +122,19 @@ def detect(vols, plan, params: SIFT3DParams, device,
     {(o, s): (B, nz, ny, nx)}, ``orient_levels``' keypoints and volume
     index, and the (B,) flag of volumes whose extrema exceeded a level's
     capacity. ``pipelined`` builds the pyramid with
-    ``pyramid.build_gpyr_pipelined``. The copy to ``device`` (or the wait
-    for the copy that ``ops/upload.upload_start`` began, when ``vols`` is
-    its Pending) runs in the ``sift3d.upload`` span, each stage after it
-    inside a ``sift3d.<stage>`` profiler span.
+    ``pyramid.build_gpyr_pipelined``. The volumes come to ``device``
+    through ``ops/upload.upload_parts`` (``vols`` may be the Pending of
+    ``upload_start``): a host stack that streams is built sub-batch by
+    sub-batch as each lands, into its slice of the batch's levels. Each
+    wait for a copy runs in a ``sift3d.upload`` span, each pyramid
+    build in ``sift3d.pyramid``, and each stage after them inside a
+    ``sift3d.<stage>`` profiler span.
     """
-    vols = upload(vols, device, torch.float32)
-    with record_function("sift3d.pyramid"):
-        build = pyr_mod.build_gpyr_pipelined if pipelined else \
-            pyr_mod.build_gpyr
-        gpyr = build(pyr_mod.im_scale(vols), plan)
-        dog = pyr_mod.build_dog(gpyr, plan)
+    gpyr, dog = {}, {}
+    with upload_parts(vols, device, torch.float32) as (n, parts):
+        for sl, x in parts:
+            with record_function("sift3d.pyramid"):
+                pyr_mod.build_into(gpyr, dog, x, sl, n, plan, pipelined)
     with record_function("sift3d.extrema"):
         ext = detect_extrema_levels(dog, plan, params)
     with record_function("sift3d.orientation"):

@@ -19,11 +19,21 @@ axis, in x, then y, then z order, in one of two fp32 forms:
 
 ``conv_sep`` takes the framed form on axes of at least ``BANDED_MIN_N``
 voxels.
+
+The host matrices and tile sets are cached by their arguments
+(``_conv_matrix_cached``, ``_frame_tiles_cached``); ``conv_sep`` keeps
+the copy of each on a device (``device_operators``, keyed by the same
+arguments plus device and dtype, held for the life of the process as the
+host caches hold theirs), so a blur copies nothing from the host once
+its operators are there. ``conv.w_uploads`` counts the host-to-device
+copies of operators: a miss of that cache, or a host matrix handed to
+``conv_axis``.
 """
 
 from __future__ import annotations
 
 import functools
+import threading
 
 import numpy as np
 import torch
@@ -106,18 +116,7 @@ def conv_axis(vol: torch.Tensor, W, axis: int) -> torch.Tensor:
     rectangular for a sharded block or a composed pyramid operator. A
     host ``W`` is copied to ``vol``'s device on every call, counted as
     ``conv.w_uploads``."""
-    if not torch.is_tensor(W):
-        trace.count("conv.w_uploads")
-    W = torch.as_tensor(W, dtype=vol.dtype, device=vol.device)
-    axis = axis % vol.ndim
-    if axis == vol.ndim - 1:
-        return torch.matmul(vol, W.T)
-    shape = vol.shape
-    n = shape[axis]
-    lead = int(np.prod(shape[:axis], dtype=np.int64))
-    v = vol.reshape(lead, n, -1)
-    return torch.matmul(W, v).reshape(shape[:axis] + (W.shape[0],) +
-                                      shape[axis + 1:])
+    return apply_form(vol, (None, W), axis)
 
 
 # Axis length from which ``conv_sep`` and ``pyramid.apply_sep_ops`` take
@@ -178,8 +177,8 @@ def _frame(v: torch.Tensor, lo: int, K: int) -> torch.Tensor:
     return F.pad(v[:, a:b], (0, 0, a - lo, lo + K - b))
 
 
-def _apply_frame_tiles(vol: torch.Tensor, H: int, tiles: np.ndarray,
-                       axis: int) -> torch.Tensor:
+def _apply_frame_tiles(vol: torch.Tensor, H: int, tiles, axis: int,
+                       out=None) -> torch.Tensor:
     """Apply a banded operator in (H, tiles) form along ``axis``.
 
     Tile t's output rows [t T, t T + T) are its (T, K) weights (K = T +
@@ -189,8 +188,9 @@ def _apply_frame_tiles(vol: torch.Tensor, H: int, tiles: np.ndarray,
     One product a tile writes its rows of the output in place: a plain
     matmul along the last axis, a matmul a leading plane when there are
     fewer planes than tiles, else a matmul batched over the planes. fp32,
-    T + 2H MACs an output voxel; the output is the only full-size
-    temporary. The host tiles are copied to ``vol``'s device on every
+    T + 2H MACs an output voxel; the output (``out`` where it is given, a
+    contiguous tensor of ``vol``'s shape) is the only full-size
+    temporary. Host ``tiles`` are copied to ``vol``'s device on every
     call, counted as ``conv.w_uploads``."""
     axis = axis % vol.ndim
     shape = vol.shape
@@ -199,13 +199,17 @@ def _apply_frame_tiles(vol: torch.Tensor, H: int, tiles: np.ndarray,
     lead = int(np.prod(shape[:axis], dtype=np.int64))
     trail = int(np.prod(shape[axis + 1:], dtype=np.int64))
     v = vol.reshape(lead, n, trail)
-    trace.count("conv.w_uploads")
+    if not torch.is_tensor(tiles):
+        trace.count("conv.w_uploads")
     Wt = torch.as_tensor(tiles, dtype=vol.dtype, device=vol.device)
-    out = torch.empty((lead, n, trail), dtype=vol.dtype, device=vol.device)
+    if out is None:
+        out = torch.empty((lead, n, trail), dtype=vol.dtype,
+                          device=vol.device)
+    flat = out.view(lead, n, trail)
     for t in range(ntiles):
         r = min(T, n - t * T)              # the last tile's rows inside n
         x = _frame(v, t * T - H, K)
-        o = out[:, t * T:t * T + r]
+        o = flat[:, t * T:t * T + r]
         if trail == 1:
             torch.mm(x[..., 0], Wt[t, :r].T, out=o[..., 0])
         elif lead < ntiles:
@@ -216,19 +220,57 @@ def _apply_frame_tiles(vol: torch.Tensor, H: int, tiles: np.ndarray,
     return out.reshape(shape)
 
 
-def apply_banded_matrix(vol: torch.Tensor, W: np.ndarray,
-                        axis: int) -> torch.Tensor:
-    """Apply a square banded matrix (host numpy) along ``axis`` in the
-    framed form; the dense matmul when the band is so wide (e.g. heavily
-    composed pyramid operators) that framing would not cut the work a
-    voxel."""
+def matrix_form(W: np.ndarray) -> tuple:
+    """How ``apply_banded_matrix`` applies the square banded matrix
+    ``W`` (host numpy): ``banded_frame_tiles``' (H, tiles), or (None, W)
+    for the dense matmul when the band is so wide (e.g. heavily composed
+    pyramid operators) that framing would not cut the work a voxel."""
     W = np.asarray(W, np.float32)
     n = W.shape[0]
-    H = band_half_width(W)
-    if min(FRAME_TILE, n) + 2 * H >= n:
-        return conv_axis(vol, W, axis)
-    H, tiles = banded_frame_tiles(W)
-    return _apply_frame_tiles(vol, H, tiles, axis)
+    if min(FRAME_TILE, n) + 2 * band_half_width(W) >= n:
+        return None, W
+    return banded_frame_tiles(W)
+
+
+def apply_form(vol: torch.Tensor, form, axis: int, out=None):
+    """Apply an operator in ``matrix_form``'s form (its array on the host,
+    or already on ``vol``'s device) along ``axis``: the framed tiles
+    where H is given, else ``conv_axis``'s dense matmul; written into
+    ``out`` (a contiguous tensor of the result's shape) where it is
+    given."""
+    H, W = form
+    if H is not None:
+        return _apply_frame_tiles(vol, H, W, axis, out)
+    if not torch.is_tensor(W):
+        trace.count("conv.w_uploads")
+    W = torch.as_tensor(W, dtype=vol.dtype, device=vol.device)
+    axis = axis % vol.ndim
+    if axis == vol.ndim - 1:
+        return torch.matmul(vol, W.T, out=out)
+    shape = vol.shape
+    n = shape[axis]
+    lead = int(np.prod(shape[:axis], dtype=np.int64))
+    v = vol.reshape(lead, n, -1)
+    flat = None if out is None else out.view(lead, W.shape[0], -1)
+    return torch.matmul(W, v, out=flat).reshape(shape[:axis] + (W.shape[0],) +
+                                                shape[axis + 1:])
+
+
+def apply_forms(vol: torch.Tensor, forms, out=None) -> torch.Tensor:
+    """Apply per-axis (x, y, z) operators in ``apply_form``'s form, x then
+    y then z (apply_Sep_FIR_filter's order, imutil.c:3494-3526); the z
+    pass written into ``out`` where it is given."""
+    fx, fy, fz = forms
+    vol = apply_form(vol, fx, -1)
+    vol = apply_form(vol, fy, -2)
+    return apply_form(vol, fz, -3, out)
+
+
+def apply_banded_matrix(vol: torch.Tensor, W: np.ndarray,
+                        axis: int) -> torch.Tensor:
+    """Apply a square banded matrix (host numpy) along ``axis`` in
+    ``matrix_form``'s form."""
+    return apply_form(vol, matrix_form(W), axis)
 
 
 @functools.lru_cache(maxsize=None)
@@ -238,16 +280,103 @@ def _frame_tiles_cached(taps_key, unit: float, unit_dim: float, n: int,
         _conv_matrix_cached(taps_key, unit, unit_dim, n), tile)
 
 
+# Device copies of host operators: (key, device, dtype) -> tensor, a key
+# being ``_axis_key``'s or one of ``pyramid``'s composed operators. Entries
+# are never evicted: they are as many as the host caches' entries times
+# the devices and dtypes used.
+_device_ops: dict = {}
+_device_lock = threading.Lock()
+# Each device copy starts at a multiple of this many elements of its
+# upload's buffer, the caching allocator's 512-byte alignment in fp32.
+_OP_ALIGN = 128
+
+
+def _taps_key(taps) -> tuple:
+    return tuple(np.asarray(taps, np.float32).tolist())
+
+
+def _axis_key(taps_key, unit: float, unit_dim: float, n: int) -> tuple:
+    """The key of ``conv_sep``'s operator on an axis of length ``n``: the
+    framed tile set from ``BANDED_MIN_N`` voxels, else the dense matrix,
+    each with its host cache's arguments."""
+    if n >= BANDED_MIN_N:
+        return ("tiles", taps_key, float(unit), float(unit_dim), int(n),
+                FRAME_TILE)
+    return ("W", taps_key, float(unit), float(unit_dim), int(n))
+
+
+def _host_operator(key) -> np.ndarray:
+    if key[0] == "W":
+        return _conv_matrix_cached(*key[1:])
+    return _frame_tiles_cached(*key[1:])[1]
+
+
+def device_operators(keys, device, dtype, hosts=None) -> list:
+    """The copies on ``device`` as ``dtype`` of the host operators
+    ``keys``, in order: ``_axis_key``'s keys, or keys of ``hosts``, a
+    mapping to the host arrays of operators built elsewhere (the composed
+    operators of ``pyramid.build_gpyr_pipelined``). Those not yet there
+    go up together, in one host-to-device copy (counted once as
+    ``conv.w_uploads``), and are kept."""
+    device = torch.device(device)
+    want = [(k, device, dtype) for k in keys]
+    with _device_lock:
+        missing = list(dict.fromkeys(w for w in want
+                                     if w not in _device_ops))
+    if missing:
+        hosts = [np.asarray(hosts[k] if hosts and k in hosts else
+                            _host_operator(k), np.float32)
+                 for k, _, _ in missing]
+        offs = np.cumsum([0] + [-(-h.size // _OP_ALIGN) * _OP_ALIGN
+                                for h in hosts])
+        buf = np.zeros(int(offs[-1]), np.float32)
+        for h, a in zip(hosts, offs):
+            buf[a:a + h.size] = h.ravel()
+        flat = torch.as_tensor(buf, dtype=dtype, device=device)
+        trace.count("conv.w_uploads")
+        with _device_lock:
+            for w, h, a in zip(missing, hosts, offs):
+                _device_ops.setdefault(
+                    w, flat[a:a + h.size].view(h.shape))
+    with _device_lock:
+        return [_device_ops[w] for w in want]
+
+
+def sep_keys(taps, unit: float, units, shape) -> list:
+    """The keys of the x, y and z operators of ``conv_sep`` on a
+    (..., nz, ny, nx) ``shape``: ``device_operators``' input, for a
+    caller that loads many blurs' operators at once."""
+    key = _taps_key(taps)
+    return [_axis_key(key, unit, u, n)
+            for u, n in zip(units, tuple(shape[-3:])[::-1])]
+
+
+def _device_form(key, device, dtype) -> tuple:
+    """The operator ``key`` (``_axis_key``'s) in ``apply_form``'s form,
+    its array the copy on ``device`` from ``device_operators``."""
+    op, = device_operators([key], device, dtype)
+    return (_frame_tiles_cached(*key[1:])[0] if key[0] == "tiles" else None,
+            op)
+
+
+def sep_forms(vol: torch.Tensor, taps, unit: float, units) -> list:
+    """``conv_sep``'s x, y and z operators for ``vol`` in ``apply_form``'s
+    form, each kept on ``vol``'s device (``device_operators``, one copy
+    an operator not yet there)."""
+    return [_device_form(k, vol.device, vol.dtype)
+            for k in sep_keys(taps, unit, units, vol.shape)]
+
+
 def conv_axis_banded(vol: torch.Tensor, taps: np.ndarray, unit: float,
                      unit_dim: float, axis: int) -> torch.Tensor:
     """``conv_axis`` with ``conv_matrix(taps, unit, unit_dim, n)`` (the
     same matrix, mirror rows and mm-unit interpolated taps included) in
-    the framed form: T + 2H MACs a voxel instead of n."""
+    the framed form: T + 2H MACs a voxel instead of n. The tile set is
+    kept on ``vol``'s device (``device_operators``)."""
     n = vol.shape[axis % vol.ndim]
-    H, tiles = _frame_tiles_cached(
-        tuple(np.asarray(taps, np.float32).tolist()),
-        float(unit), float(unit_dim), int(n), FRAME_TILE)
-    return _apply_frame_tiles(vol, H, tiles, axis)
+    key = ("tiles", _taps_key(taps), float(unit), float(unit_dim), int(n),
+           FRAME_TILE)
+    return apply_form(vol, _device_form(key, vol.device, vol.dtype), axis)
 
 
 def conv_sep(vol: torch.Tensor, taps: np.ndarray, unit: float,
@@ -257,12 +386,6 @@ def conv_sep(vol: torch.Tensor, taps: np.ndarray, unit: float,
     Matches apply_Sep_FIR_filter's dimension order x, then y, then z
     (imutil.c:3494-3526). ``units`` is (ux, uy, uz). Axes of at least
     ``BANDED_MIN_N`` voxels take the framed form, shorter ones the dense
-    matmul."""
-    dims = (vol.ndim - 1, vol.ndim - 2, vol.ndim - 3)
-    for axis, u in zip(dims, units):
-        n = vol.shape[axis]
-        if n >= BANDED_MIN_N:
-            vol = conv_axis_banded(vol, taps, unit, u, axis)
-        else:
-            vol = conv_axis(vol, conv_matrix(taps, unit, u, n), axis)
-    return vol
+    matmul; each axis's operator is kept on ``vol``'s device
+    (``sep_forms``)."""
+    return apply_forms(vol, sep_forms(vol, taps, unit, units))

@@ -6,17 +6,24 @@ is uploaded as.
 
 A pageable ``.to(device)`` of a volume stack holds the caller for the
 whole copy, and the card has nothing to do meanwhile. Here a copy from
-the host (a CPU tensor) to a CUDA device goes through a process-wide ring
-of ``RING_DEPTH`` pinned buffers of ``CHUNK_BYTES``, allocated on first
-use and reused by every later call. The source is cut into contiguous
-pieces of at most a buffer each (``pieces``); for each piece the host
-waits for the last copy out of its buffer, copies the piece in (torch's
-CPU copy, which also converts the type, e.g. int16 to float32) and
-queues the buffer's copy to the device on a copy stream of its own, so
-that staging the next piece overlaps the copy of this one. Nothing is
-kept of the caller's data: every call copies every byte. Every other
-copy (to a CPU destination, or of a tensor already on a device) is the
-plain ``.to()``, made contiguous.
+the host (a CPU tensor) to a CUDA device is staged through pinned
+buffers and queued on a copy stream of its own, so that staging the next
+piece overlaps the device copy of this one. A contiguous source that
+keeps its type goes through ``csrc/host_stage.cu`` (``_native_copy``):
+``STAGE_THREADS`` host threads copy its ``STAGE_CHUNK_BYTES`` pieces
+into pinned buffers of their own and queue each piece's device copy,
+the whole loop in one native call that runs without the interpreter's
+lock, so a caller launching work on another thread does not slow it.
+Any other source (a change of type, e.g. int16 to float32, or a strided
+view) goes through a process-wide ring of ``RING_DEPTH`` pinned buffers
+of ``CHUNK_BYTES`` (``Ring``), allocated on first use and reused by
+every later call: the source is cut into contiguous pieces of at most a
+buffer each (``pieces``); for each piece the host waits for the last
+copy out of its buffer, copies the piece in with torch's CPU copy
+(which converts the type) and queues the buffer's copy to the device.
+Nothing is kept of the caller's data: every call copies every byte.
+Every other copy (to a CPU destination, or of a tensor already on a
+device) is the plain ``.to()``, made contiguous.
 
 Stream safety: the destination is allocated on the caller's thread, on
 its current stream; the copy stream first waits for an event recorded
@@ -28,11 +35,22 @@ sync of the caller's stream.
 returns at once with a ``Pending``: uploads run there in the order they
 were started, so a caller can start the upload of the next batch before
 it works on this one.
+
+``upload_parts`` hands a stack of volumes over in the sub-batches that
+land one after another, so that the caller works on each while the next
+goes up. A stack streams where the source is on the host, the device is
+CUDA and the stack holds at least two sub-batches (``sub_batches``): its
+upload runs on the worker, one sub-batch after another, each with an
+event of its own that the caller's stream waits on. Any
+other source is the one ``upload`` it was. The bytes that land after the
+first sub-batch are counted as ``upload.streamed_bytes``.
 """
 
 from __future__ import annotations
 
 import concurrent.futures
+import contextlib
+import ctypes
 import itertools
 import math
 import threading
@@ -41,10 +59,37 @@ import numpy as np
 import torch
 from torch.profiler import record_function
 
+from .. import _build
 from ..utils import trace
 
 CHUNK_BYTES = 64 << 20      # one ring buffer
 RING_DEPTH = 4              # buffers in the ring
+# The native staging (``_native_copy``): host threads, the caller's
+# among them, and the bytes each copies into a pinned buffer at a time.
+# Set on an NVIDIA H100 80GB HBM3 at 700 W with 8 host cores (PERF.md
+# section 6): a 1.85 GB stack staged at 12.2-25.5 GB/s alone and 10.8-17.5
+# GB/s beside a caller launching pyramids at 4-8 threads (the torch ring
+# 5.2-5.4); in portbench's mni152.batch64, 4 threads read 185.96 and
+# 171.30 pairs/s against 7's 160.14 and 177.42 on one machine, and 4, 6
+# and 7 threads 188.24-196.83 pairs/s on another, where the card sets
+# the pace. The piece size was compared at 7 threads only, in the probe:
+# 4 MiB staged 18.97-26.10 GB/s alone and 13.52-15.36 beside pyramids,
+# 8 MiB 13.12-19.86 and 12.79-13.44, 16 MiB 11.20-20.69 and 9.83-11.52.
+# 8 MiB is what the cell ran at 4 threads; 4 MiB there is not measured
+# (PERF.md section 7).
+STAGE_THREADS = 4
+STAGE_CHUNK_BYTES = 8 << 20
+# Bytes a streamed sub-batch reaches (``sub_batches``): 10 volumes of
+# the MNI152 1 mm grid, 7 sub-batches of a 64-volume stack. Swept on an
+# NVIDIA H100 80GB HBM3 at 700 W by portbench's mni152.batch64 on three
+# machines while the torch ring still did the staging, in turns with the
+# port before streaming (PERF.md section 6 has every run): 256 MiB read
+# 116.72-186.92 pairs/s and led in each of 7 turns (72.64-138.56 before);
+# 512 MiB read 122.55-167.26 and peaked 0.8 GB higher (28.64e9 B against
+# 27.86e9); 1 GiB 101.88-117.00 and 128 MiB 73.04-116.95 on the slowest
+# host. With the native staging the cell read 170.17-193.16 pairs/s at
+# 256 MiB; the sweep is not yet repeated there (PERF.md section 7).
+SUB_BATCH_BYTES = 256 << 20
 
 _lock = threading.Lock()
 _ring_obj = None
@@ -65,6 +110,15 @@ def pieces(shape, itemsize: int, chunk: int):
     for outer in itertools.product(*map(range, shape[:d])):
         for a in range(0, shape[d], rows):
             yield outer + (slice(a, min(a + rows, shape[d])),)
+
+
+def sub_batches(shape, itemsize: int) -> list:
+    """Slices of the first axis of a (B, nz, ny, nx) stack of ``shape``:
+    each the fewest whole volumes whose bytes reach ``SUB_BATCH_BYTES``,
+    the last the volumes left."""
+    per = max(-(-SUB_BATCH_BYTES // (math.prod(shape[1:]) * itemsize)), 1)
+    return [slice(a, min(a + per, shape[0]))
+            for a in range(0, shape[0], per)]
 
 
 class Ring:
@@ -167,14 +221,41 @@ def _dma(stream):
     return send
 
 
-def _fill(t: torch.Tensor, dst: torch.Tensor, after):
-    """Copy the host tensor ``t`` into the CUDA tensor ``dst`` through the
-    ring, on the copy stream of ``dst``'s device once ``after`` has
-    passed; returns the event of the last copy."""
+def _native_copy(src: torch.Tensor, dst: torch.Tensor, stream) -> None:
+    """Queue the copy of the contiguous host tensor ``src`` into the
+    contiguous CUDA tensor ``dst`` of its shape and type on ``stream``,
+    staged by ``csrc/host_stage.cu``; returns once every piece is queued
+    (ctypes lets go of the interpreter's lock for the call)."""
+    fn = _build.load("host_stage").sift3d_stage_copy
+    if fn.argtypes is None:
+        P, S, I = ctypes.c_void_p, ctypes.c_size_t, ctypes.c_int
+        fn.argtypes = [P, P, S, S, I, I, P]
+        fn.restype = I
+    _build.check(fn(src.data_ptr(), dst.data_ptr(),
+                    src.numel() * src.element_size(), STAGE_CHUNK_BYTES,
+                    STAGE_THREADS, dst.device.index, stream.cuda_stream),
+                 "sift3d_stage_copy")
+
+
+def _fill(t: torch.Tensor, dst: torch.Tensor, after, parts=None):
+    """Copy the host tensor ``t`` into the CUDA tensor ``dst`` (natively
+    staged, or through the ring), on the copy stream of ``dst``'s device
+    once ``after`` has passed; returns the event of the last copy. ``parts``: (slice,
+    future) of each sub-batch of a streamed stack, copied in turn, each
+    future given the event of its sub-batch's last copy."""
     stream = _copy_stream(dst.device)
     stream.wait_event(after)
     try:
-        ring().copy(t, dst, _dma(stream))
+        for sl, landed in parts or [(slice(None), None)]:
+            src, to = t[sl], dst[sl]
+            if src.is_contiguous() and src.dtype == to.dtype:
+                _native_copy(src, to, stream)
+            else:
+                ring().copy(src, to, _dma(stream))
+            if landed is not None:
+                ev = torch.cuda.Event()
+                ev.record(stream)
+                landed.set_result(ev)
     except BaseException:
         stream.synchronize()        # no copy into dst outlives this call
         raise
@@ -212,12 +293,16 @@ class Pending:
     """An upload running on the upload worker. ``result()`` waits for it
     (raising the worker's exception) and orders the caller's current
     stream after its copies; ``wait()`` does the same and raises
-    nothing. ``nbytes``: what it takes from the host."""
+    nothing. ``nbytes``: what it takes from the host; ``shape``: the
+    tensor's. A streamed stack's sub-batches can be taken as they land
+    (``upload_parts``)."""
 
-    def __init__(self, future, dst, nbytes: int):
+    def __init__(self, future, dst, nbytes: int, shape, parts=None):
         self._future = future
         self._dst = dst
         self.nbytes = nbytes
+        self.shape = tuple(shape)
+        self._parts = parts
 
     def result(self) -> torch.Tensor:
         out = self._future.result()
@@ -231,17 +316,76 @@ class Pending:
         if self._future.exception() is None:
             self.result()
 
+    def _landed(self):
+        """Each sub-batch as (slice, tensor) once its copy is queued: the
+        caller waits for it in the span ``sift3d.upload``, where its
+        current stream is ordered after the copy."""
+        for k, (sl, landed) in enumerate(self._parts):
+            with record_function("sift3d.upload"):
+                concurrent.futures.wait(
+                    [landed, self._future],
+                    return_when=concurrent.futures.FIRST_COMPLETED)
+                if not landed.done():
+                    self._future.result()   # raises the worker's error
+                torch.cuda.current_stream(self._dst.device).wait_event(
+                    landed.result())
+            part = self._dst[sl]
+            if k:
+                trace.count("upload.streamed_bytes",
+                            part.numel() * part.element_size())
+            yield sl, part
+
+
+def _stream_parts(t: torch.Tensor, device, dtype):
+    """The sub-batches a stack streams in: a host stack of volumes bound
+    for a CUDA device that holds at least two; else None."""
+    if not _staged(t, device) or t.ndim != 4:
+        return None
+    parts = sub_batches(t.shape, (dtype or t.dtype).itemsize)
+    return parts if len(parts) > 1 else None
+
 
 def upload_start(data, device, dtype=None) -> Pending:
     """Start ``upload``'s copy on the upload worker and return at once,
     with no span: the worker opens none, so no device work that the
     caller launches meanwhile is given to it. Hand the Pending to
-    ``upload`` where the tensor is needed, and ``wait()`` on it before
-    the data it reads can go."""
+    ``upload`` or ``upload_parts`` where the tensor is needed, and
+    ``wait()`` on it before the data it reads can go."""
     t, nbytes = _source(data, dtype)
     device = torch.device(device)
     if not _staged(t, device):
         return Pending(_worker().submit(_plain, t, device, dtype), None,
-                       nbytes)
+                       nbytes, t.shape)
     dst, after = _begin(t, device, dtype)
-    return Pending(_worker().submit(_fill, t, dst, after), dst, nbytes)
+    parts = _stream_parts(t, device, dtype)
+    if parts is not None:
+        parts = [(sl, concurrent.futures.Future()) for sl in parts]
+    return Pending(_worker().submit(_fill, t, dst, after, parts), dst,
+                   nbytes, t.shape, parts)
+
+
+@contextlib.contextmanager
+def upload_parts(data, device, dtype=None):
+    """``upload`` of a (B, nz, ny, nx) stack (an array, a tensor or the
+    Pending of ``upload_start``) in the sub-batches that land one after
+    another. Yields (B, parts): ``parts`` iterates over (slice of the
+    batch axis, those volumes on ``device``), each once the caller's
+    stream is ordered after its copy. A stack that streams (see the
+    module's docstring) goes up on the upload worker, and the caller
+    waits for each sub-batch in its own ``sift3d.upload`` span; any other
+    is one part, ``upload``'s tensor. The block does not end while the
+    worker reads ``data``."""
+    if not isinstance(data, Pending):
+        t = data if torch.is_tensor(data) else \
+            torch.as_tensor(np.asarray(data))
+        if _stream_parts(t, torch.device(device), dtype):
+            data = upload_start(t, device, dtype)
+    if not isinstance(data, Pending) or data._parts is None:
+        trace.count("upload.streamed_bytes", 0)
+        x = upload(data, device, dtype)
+        yield x.shape[0], iter([(slice(0, x.shape[0]), x)])
+        return
+    try:
+        yield data.shape[0], data._landed()
+    finally:
+        data.wait()

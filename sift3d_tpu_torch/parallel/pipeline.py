@@ -386,9 +386,11 @@ def batch_register_pairs(src_vols, ref_vols, plan, params: SIFT3DParams,
     trace.count("calls.batch_register_pairs")
     if mesh is None:
         dev = resolve_device(device)
-        # Both stacks go up on the upload worker, in turn: the src side
-        # waits for its own, and the ref side's runs under the src side's
-        # detection. The call never ends while the worker reads them.
+        # Both stacks go up on the upload worker, in turn and without a
+        # pause: each side builds its pyramid sub-batch by sub-batch as
+        # its stack lands (``detect``), and the ref stack goes up under
+        # the src side's work. The call never ends while the worker reads
+        # them.
         ups = []
         try:
             for vols in (src_vols, ref_vols):

@@ -25,6 +25,7 @@ axis over the whole batch, dense or framed (``ops/conv.conv_sep``).
 from __future__ import annotations
 
 import dataclasses
+import functools
 
 import numpy as np
 import torch
@@ -151,26 +152,56 @@ def build_gpyr(vol: torch.Tensor, plan: PyramidPlan) -> dict:
 
     Returns {(o, s): tensor}.
     """
+    return _build_gpyr(vol, plan, None)
+
+
+def _out(out, key):
+    return None if out is None else out[key]
+
+
+def _blurs(plan: PyramidPlan) -> list:
+    """``conv.sep_keys`` of every blur of ``build_gpyr``."""
+    first, keys = plan.first_level, []
+    for o in range(plan.num_octaves):
+        dims = plan.octave_dims(o)[::-1]
+        units_o = plan.octave_units(o)
+        if o == 0:
+            keys += conv.sep_keys(plan.first_gauss_taps(), 1.0, units_o, dims)
+        for s in range(first + 1, plan.last_gpyr_level + 1):
+            keys += conv.sep_keys(plan.octave_filter_taps(s), 1.0, units_o,
+                                  dims)
+    return keys
+
+
+def _build_gpyr(vol: torch.Tensor, plan: PyramidPlan, out) -> dict:
+    """``build_gpyr``, each level written into ``out[(o, s)]`` (contiguous
+    tensors of the levels' shapes) where ``out`` is given. Every blur's
+    operators go to ``vol``'s device first, those missing in one copy."""
+    conv.device_operators(_blurs(plan), vol.device, vol.dtype)
     first = plan.first_level
     last = plan.last_gpyr_level
     levels: dict = {}
     for o in range(plan.num_octaves):
         units_o = plan.octave_units(o)
         if o == 0:
-            levels[(o, first)] = conv.conv_sep(vol, plan.first_gauss_taps(),
-                                               1.0, units_o)
+            levels[(o, first)] = conv.apply_forms(
+                vol, conv.sep_forms(vol, plan.first_gauss_taps(), 1.0,
+                                    units_o), _out(out, (o, first)))
         else:
             # Strided 2x downsample of the previous octave's
             # downsample_level, with no extra blur (sift.c:1029-1042);
             # floor-halved dims (imutil.c:1748-1750).
             src = levels[(o - 1, plan.downsample_level)]
             nxd, nyd, nzd = plan.octave_dims(o)
-            levels[(o, first)] = \
-                src[..., ::2, ::2, ::2][..., :nzd, :nyd, :nxd].contiguous()
+            down = src[..., ::2, ::2, ::2][..., :nzd, :nyd, :nxd]
+            levels[(o, first)] = down.contiguous() if out is None else \
+                out[(o, first)].copy_(down)
         for s in range(first + 1, last + 1):
             taps = plan.octave_filter_taps(s)
-            levels[(o, s)] = conv.conv_sep(levels[(o, s - 1)], taps, 1.0,
-                                           units_o)
+            prev = levels[(o, s - 1)]
+            levels[(o, s)] = conv.apply_forms(
+                prev, conv.sep_forms(prev, taps, 1.0, units_o),
+                _out(out, (o, s)))
     return levels
 
 
@@ -223,51 +254,124 @@ def composed_pyramid_operators(plan: PyramidPlan):
     return seed_ops, level_ops
 
 
-def _apply_axis_op(vol: torch.Tensor, W: np.ndarray,
-                   axis: int) -> torch.Tensor:
-    """Apply one composed per-axis operator: framed for square matrices
-    on axes of at least ``conv.BANDED_MIN_N`` voxels (``conv_sep``'s
-    crossover), the dense matmul otherwise."""
+def _axis_form(W: np.ndarray) -> tuple:
+    """How a composed per-axis operator is applied (``conv.apply_form``):
+    framed (``conv.matrix_form``) for square matrices on axes of at least
+    ``conv.BANDED_MIN_N`` voxels (``conv_sep``'s crossover), the dense
+    matmul otherwise."""
     n_out, n_in = W.shape
     if n_out == n_in and n_in >= conv.BANDED_MIN_N:
-        return conv.apply_banded_matrix(vol, W, axis)
-    return conv.conv_axis(vol, W, axis)
+        return conv.matrix_form(W)
+    return None, W
+
+
+def _forms(ops) -> tuple:
+    """``composed_pyramid_operators``' result with each matrix in
+    ``_axis_form``'s form."""
+    seed_ops, level_ops = ops
+    return ([None] + [tuple(map(_axis_form, m)) for m in seed_ops[1:]],
+            {k: tuple(map(_axis_form, m)) for k, m in level_ops.items()})
+
+
+@functools.lru_cache(maxsize=None)
+def _plan_forms(plan: PyramidPlan, banded_min_n: int, tile: int) -> tuple:
+    """``_forms`` of ``plan``'s composed operators, composed once a plan
+    and framing rule (``conv.BANDED_MIN_N``, ``conv.FRAME_TILE``)."""
+    return _forms(composed_pyramid_operators(plan))
+
+
+def _pipelined_operators(plan: PyramidPlan, device, dtype) -> tuple:
+    """``plan``'s composed operators in ``_axis_form``'s form with each
+    array on ``device`` as ``dtype``, in ``composed_pyramid_operators``'
+    layout. The copies, the first blur's operators among them, are kept
+    in ``conv``'s device cache: the first call for a plan, device and
+    dtype sends them all up in one copy, later calls none."""
+    rule = (plan, conv.BANDED_MIN_N, conv.FRAME_TILE)
+    seed_f, level_f = _plan_forms(*rule)
+    named = {("seed", o, d): f for o, fs in enumerate(seed_f)
+             if fs is not None for d, f in enumerate(fs)}
+    named.update({("level", os, d): f for os, fs in level_f.items()
+                  for d, f in enumerate(fs)})
+    keys = [("composed", rule) + n for n in named]
+    first = conv.sep_keys(plan.first_gauss_taps(), 1.0, plan.octave_units(0),
+                          plan.octave_dims(0)[::-1])
+    ops = conv.device_operators(
+        keys + first, device, dtype,
+        hosts={k: f[1] for k, f in zip(keys, named.values())})
+    on = {n: (f[0], op) for (n, f), op in zip(named.items(), ops)}
+    return ([None] + [tuple(on[("seed", o, d)] for d in range(3))
+                      for o in range(1, len(seed_f))],
+            {os: tuple(on[("level", os, d)] for d in range(3))
+             for os in level_f})
 
 
 def apply_sep_ops(vol: torch.Tensor, ops) -> torch.Tensor:
     """Apply per-axis (x, y, z) operators, x then y then z (the conv_sep
     order, imutil.c:3494-3526), to a volume or a batch."""
-    Wx, Wy, Wz = ops
-    vol = _apply_axis_op(vol, Wx, -1)
-    vol = _apply_axis_op(vol, Wy, -2)
-    return _apply_axis_op(vol, Wz, -3)
+    return conv.apply_forms(vol, tuple(map(_axis_form, ops)))
 
 
 def build_gpyr_pipelined(vol: torch.Tensor, plan: PyramidPlan,
                          ops=None) -> dict:
-    """Octave-pipelined Gaussian pyramid: ``build_gpyr``'s {(o, s): tensor}
-    for a volume or a batch, equal to it within float32 rounding, each
-    level at dependency depth 3. ``ops``: ``composed_pyramid_operators``'
-    result, if the caller holds it."""
-    if ops is None:
-        ops = composed_pyramid_operators(plan)
-    seed_ops, level_ops = ops
+    """Octave-pipelined Gaussian pyramid: ``build_gpyr``'s levels, for a
+    volume or a batch, equal to it within float32 rounding, each level at
+    dependency depth 3. ``ops``: ``composed_pyramid_operators``' result,
+    if the caller holds it (copied to the device on every call); without
+    it the plan's operators are kept on the device
+    (``_pipelined_operators``)."""
+    return _build_gpyr_pipelined(vol, plan, None, ops)
+
+
+def _build_gpyr_pipelined(vol: torch.Tensor, plan: PyramidPlan, out,
+                          ops=None) -> dict:
+    """``build_gpyr_pipelined``, each level written into ``out[(o, s)]``
+    where ``out`` is given."""
+    seed_ops, level_ops = _forms(ops) if ops is not None else \
+        _pipelined_operators(plan, vol.device, vol.dtype)
     first = plan.first_level
     levels: dict = {}
-    seed0 = conv.conv_sep(vol, plan.first_gauss_taps(), 1.0,
-                          plan.octave_units(0))
+    seed0 = conv.apply_forms(
+        vol, conv.sep_forms(vol, plan.first_gauss_taps(), 1.0,
+                            plan.octave_units(0)), _out(out, (0, first)))
     for o in range(plan.num_octaves):
-        seed = seed0 if o == 0 else apply_sep_ops(seed0, seed_ops[o])
+        seed = seed0 if o == 0 else conv.apply_forms(
+            seed0, seed_ops[o], _out(out, (o, first)))
         levels[(o, first)] = seed
         for s in range(first + 1, plan.last_gpyr_level + 1):
-            levels[(o, s)] = apply_sep_ops(seed, level_ops[(o, s)])
+            levels[(o, s)] = conv.apply_forms(seed, level_ops[(o, s)],
+                                              _out(out, (o, s)))
     return levels
 
 
 def build_dog(gpyr: dict, plan: PyramidPlan) -> dict:
     """DoG levels: dog(o, s) = gpyr(o, s) - gpyr(o, s+1) (sift.c:1052-1071)."""
+    return _build_dog(gpyr, plan, None)
+
+
+def _build_dog(gpyr: dict, plan: PyramidPlan, out) -> dict:
     dog: dict = {}
     for o in range(plan.num_octaves):
         for s in range(plan.first_level, plan.last_dog_level + 1):
-            dog[(o, s)] = gpyr[(o, s)] - gpyr[(o, s + 1)]
+            dog[(o, s)] = torch.sub(gpyr[(o, s)], gpyr[(o, s + 1)],
+                                    out=_out(out, (o, s)))
     return dog
+
+
+def build_into(gpyr: dict, dog: dict, vols: torch.Tensor, sl: slice,
+               n: int, plan: PyramidPlan, pipelined: bool = False) -> None:
+    """The Gaussian and DoG pyramids of the raw volumes ``vols``, volumes
+    ``sl`` of a batch of ``n``, put in the batch's levels ``gpyr`` and
+    ``dog`` ({(o, s): (n, nz, ny, nx)}; empty dicts on the first call):
+    ``im_scale``, every blur (with ``build_gpyr_pipelined`` when
+    ``pipelined``) and DoG, written into the slice ``sl`` of levels made
+    on the first call. Called once a sub-batch as each lands on the
+    device, or once with the whole batch."""
+    build = _build_gpyr_pipelined if pipelined else _build_gpyr
+    if not gpyr:
+        for levels, geoms in ((gpyr, plan.gpyr_levels()),
+                              (dog, plan.dog_levels())):
+            for g in geoms:
+                levels[(g.o, g.s)] = vols.new_empty((n,) + g.dims[::-1])
+    part = {k: v[sl] for k, v in gpyr.items()}
+    build(im_scale(vols), plan, part)
+    _build_dog(part, plan, {k: v[sl] for k, v in dog.items()})

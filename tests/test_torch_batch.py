@@ -8,7 +8,9 @@ with ``device="cpu"`` take the same B = 2 volume pairs: per-volume
 keypoint rows exact (R within 1e-5), descriptors within 2e-3, matches
 exact per pair, the affine within 1e-6 when the port replays the JAX
 package's RANSAC draws, and ``kp_overflow`` equal, at ample caps and at
-``max_kp_per_level=1`` (the case of ``tests/test_parallel.py``).
+``max_kp_per_level=1`` (the case of ``tests/test_parallel.py``). The src
+stack's keypoint rows are also exact with its pyramid built one volume a
+sub-batch (``tests/torch_helpers.sub_batched``).
 """
 
 import dataclasses
@@ -40,7 +42,7 @@ from sift3d_tpu_torch.register.pipeline import register_pairs
 from benches.data import make_pairs
 from tests.conftest import make_blob_volume
 from tests.torch_helpers import (jax_keypoints_to_port, keypoint_rows,
-                                 port_params)
+                                 port_params, sub_batched)
 from tests.test_torch_register import jax_draws
 
 torch.set_num_threads(1)
@@ -84,6 +86,31 @@ def test_keypoint_rows_exact_per_volume(batch):
     for b in range(2):
         want = keypoint_rows(volume(jkp, b))
         got = keypoint_rows(volume(batch["kp"], b))
+        assert want.shape[0] >= 15, "too few keypoints to be a real test"
+        np.testing.assert_array_equal(got[:, :6], want[:, :6])
+        np.testing.assert_allclose(got[:, 6:], want[:, 6:], rtol=0,
+                                   atol=1e-5)
+
+
+@pytest.fixture(scope="module")
+def streamed_kp(batch):
+    """The port's keypoints of the src stack with its pyramid built one
+    volume a sub-batch, as a host stack streams to a card."""
+    with sub_batched(4 * int(np.prod(SHAPE))):
+        kp, _, _ = tpipe.batch_detect_describe(
+            batch["src"], batch["plan"], batch["params"], device="cpu")
+    return kp
+
+
+@pytest.mark.parametrize("against", ["jax", "whole_batch"])
+def test_streamed_keypoint_rows_exact_per_volume(batch, streamed_kp,
+                                                 against):
+    want_kp = jax_keypoints_to_port(batch["jkp"]) if against == "jax" \
+        else batch["kp"]
+    assert streamed_kp.count.tolist() == want_kp.count.tolist()
+    for b in range(2):
+        want = keypoint_rows(volume(want_kp, b))
+        got = keypoint_rows(volume(streamed_kp, b))
         assert want.shape[0] >= 15, "too few keypoints to be a real test"
         np.testing.assert_array_equal(got[:, :6], want[:, :6])
         np.testing.assert_allclose(got[:, 6:], want[:, 6:], rtol=0,

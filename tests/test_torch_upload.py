@@ -7,13 +7,15 @@ result is bitwise ``torch.as_tensor(x).to(dtype)``, the ring is made once
 and reused, a thread stress loses no piece, an exception on the upload
 worker reaches the caller (and only after the worker has let go of the
 caller's arrays), and the ``upload.*`` counters count the same with the
-profiler on and off. The card test (skipped without a CUDA device; on the
-card run ``python -m pytest --noconftest tests/test_torch_upload.py -q``,
-this file needs no JAX) holds ``batch_register_pairs`` on numpy stacks
-(staged, ref-ahead) to the same call on stacks already on the card.
+profiler on and off. The card tests (skipped without a CUDA device; on
+the card run ``python -m pytest --noconftest tests/test_torch_upload.py
+-q``, this file needs no JAX) hold ``batch_register_pairs`` on numpy
+stacks (staged, ref-ahead; and streamed in sub-batches) to the same call
+on stacks already on the card.
 """
 
 import dataclasses
+import math
 import sys
 import threading
 import time
@@ -296,4 +298,78 @@ def test_staged_upload_card(cuda):
     view = base[::2, :, 5:].transpose(1, 3)
     out = upload.upload(view, cuda)
     assert _bitwise(out, view.to(cuda).contiguous())
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("chunk,threads", [(8 << 20, 7), (1 << 20, 3),
+                                           (4096, 1)])
+def test_native_staging_card(cuda, monkeypatch, chunk, threads):
+    """Contiguous host sources that keep their type go through
+    ``csrc/host_stage.cu``: a stack of several pieces a thread, one piece
+    shorter than the rest, a slice at an offset and a single byte-odd
+    volume, each bit for bit the plain ``.to()``, on the caller's thread
+    and on the worker; the ring takes none of them. Changing the
+    chunk or the threads remakes the staging buffers between calls."""
+    monkeypatch.setattr(upload, "STAGE_CHUNK_BYTES", chunk)
+    monkeypatch.setattr(upload, "STAGE_THREADS", threads)
+    native = []
+    real = upload._native_copy
+    monkeypatch.setattr(upload, "_native_copy", lambda s, d, st: (
+        native.append(s.numel() * s.element_size()), real(s, d, st)))
+    monkeypatch.setattr(upload.Ring, "copy", None)   # not called
+    rng = _rng()
+    stack = torch.as_tensor(rng.standard_normal(
+        (5, 61, 67, 71)).astype(np.float32))
+    cases = [stack, stack[2:4], torch.as_tensor(
+        rng.integers(0, 255, (1, 3, 5, 7), dtype=np.uint8))]
+    for x in cases:
+        assert _bitwise(upload.upload(x, cuda), x.to(cuda))
+        assert _bitwise(upload.upload_start(x, cuda).result(), x.to(cuda))
+    assert native == [x.numel() * x.element_size()
+                      for x in cases for _ in range(2)]
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("pipelined", [False, True],
+                         ids=["build_gpyr", "pipelined"])
+def test_streamed_upload_card(cuda, monkeypatch, pipelined):
+    """8 pairs of 64^3 blob volumes from numpy stacks, each side streamed
+    in 4 sub-batches of 2 volumes (its pyramid built as each lands, by
+    either builder), against the same stacks already on the card: matches
+    exact, the affine within 1e-6; the bytes after each side's first
+    sub-batch are counted as streamed, and a streamed call once the blur
+    operators are on the card copies none up. One volume
+    (``RegSift3D.register``) streams nothing."""
+    shape = (64, 64, 64)
+    vol_bytes = 4 * math.prod(shape)
+    monkeypatch.setattr(upload, "SUB_BATCH_BYTES", 2 * vol_bytes)
+    src, ref = make_pairs(8, shape)
+    params = SIFT3DParams()
+    plan = tpyr.plan_pyramid(shape[::-1], (1.0, 1.0, 1.0), params)
+    got = {}
+    counts = _delta(lambda: got.setdefault(
+        "streamed", batch_register_pairs(src, ref, plan, params,
+                                         device=cuda, pipelined=pipelined)))
+    plain = batch_register_pairs(torch.as_tensor(src, device=cuda),
+                                 torch.as_tensor(ref, device=cuda),
+                                 plan, params, device=cuda,
+                                 pipelined=pipelined)
+    streamed = got["streamed"]
+    assert int(plain.num_matches.min()) >= 10
+    for f in ("matches", "match_src", "match_ref", "num_matches",
+              "num_inliers", "ok", "inlier_mask", "kp_overflow"):
+        assert torch.equal(getattr(streamed, f), getattr(plain, f)), f
+    torch.testing.assert_close(streamed.A, plain.A, rtol=0, atol=1e-6)
+    assert counts["upload.bytes"] == 2 * src.nbytes
+    assert counts["upload.ahead_bytes"] == src.nbytes
+    assert counts["upload.streamed_bytes"] == 2 * 6 * vol_bytes
+    w_uploads = trace.counters().get("conv.w_uploads", 0)
+    again = _delta(lambda: batch_register_pairs(
+        src, ref, plan, params, device=cuda, pipelined=pipelined))
+    assert again["upload.streamed_bytes"] == 2 * 6 * vol_bytes
+    assert trace.counters().get("conv.w_uploads", 0) == w_uploads
+
+    one = _delta(lambda: RegSift3D(device=cuda).register(src[0], ref[0]))
+    assert one["upload.bytes"] == 2 * vol_bytes
+    assert "upload.streamed_bytes" not in one
     torch.cuda.synchronize()

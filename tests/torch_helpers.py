@@ -7,12 +7,16 @@ helpers carry JAX results across to the port through
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 
 import numpy as np
+import pytest
 import torch
 
 from sift3d_tpu_torch import convert
+from sift3d_tpu_torch.features import detect as detect_mod
+from sift3d_tpu_torch.ops import upload
 
 KP_FIELDS = ("x", "y", "z", "o", "s", "sd", "R")
 
@@ -53,3 +57,23 @@ def keypoint_rows(kp) -> np.ndarray:
     R = kp.R
     R = R.cpu().numpy() if torch.is_tensor(R) else np.asarray(R)
     return np.concatenate(cols + [R[:n].reshape(n, 9).astype(np.float64)], 1)
+
+
+@contextlib.contextmanager
+def _cpu_parts(data, device, dtype=None):
+    """``upload.upload_parts`` on the CPU, cut by ``upload.sub_batches`` as
+    a stack that streams to a card is."""
+    x = upload.upload(data, device, dtype)
+    yield x.shape[0], ((sl, x[sl]) for sl in
+                       upload.sub_batches(x.shape, x.element_size()))
+
+
+@contextlib.contextmanager
+def sub_batched(sub_batch_bytes: int):
+    """``features.detect.detect`` builds each stack's pyramid sub-batch by
+    sub-batch on the CPU (where nothing streams), each sub-batch the
+    fewest volumes reaching ``sub_batch_bytes``."""
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(upload, "SUB_BATCH_BYTES", sub_batch_bytes)
+        mp.setattr(detect_mod, "upload_parts", _cpu_parts)
+        yield
